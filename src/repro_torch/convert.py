@@ -1,0 +1,77 @@
+"""Carry engine state between the JAX package and the port, exactly.
+
+`state_from_numpy` takes the fields of the reference's `StreamingGraph`,
+`WalkStore`, `PendingBlocks` and `EngineState` as numpy arrays (in the
+reference's dtypes: uint64 codes, uint32 columns) in a flat dict keyed
+`"graph.codes"`, `"store.owner"`, ... (see FIELDS), and builds the port's
+EngineState; `state_to_numpy` is its inverse. No JAX is imported: the
+caller turns its arrays into numpy first.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch._u64 import from_u32_numpy, from_u64_numpy, to_u32_numpy, to_u64_numpy
+from repro_torch.core.graph import StreamingGraph
+from repro_torch.core.store import WalkStore
+from repro_torch.core.update import EngineState, PendingBlocks
+
+# field -> its representation: "u64" codes, "u32" columns, "i32" columns
+FIELDS = {
+    "graph.codes": "u64", "graph.offsets": "i32", "graph.num_edges": "i32",
+    "store.owner": "u32", "store.code": "u64", "store.epoch": "u32",
+    "store.offsets": "i32", "store.vmin": "u32", "store.vmax": "u32",
+    "store.packed": "u32", "store.widths": "u32", "store.anchors_hi": "u32",
+    "store.anchors_lo": "u32", "store.last_hi": "u32", "store.last_lo": "u32",
+    "store.slot_epoch": "u32",
+    "pending.owner": "u32", "pending.code": "u64", "pending.epoch": "u32",
+    "pending.slot": "i32",
+    "last_affected": "i32", "total_affected": "i32",
+}
+# host integers and the bool flag
+SCALARS = ("graph.n_vertices", "store.length", "store.n_walks",
+           "store.n_vertices", "store.chunk_b", "n_pending", "epoch",
+           "overflow")
+
+_FROM = {"u64": from_u64_numpy, "u32": from_u32_numpy,
+         "i32": lambda a, device: torch.from_numpy(
+             np.array(a, dtype=np.int32)).to(device)}
+_TO = {"u64": to_u64_numpy, "u32": to_u32_numpy,
+       "i32": lambda t: t.detach().cpu().numpy().astype(np.int32)}
+
+
+def state_from_numpy(d: dict, device=None) -> EngineState:
+    dev = resolve_device(device)
+    t = {k: _FROM[kind](d[k], device=dev) for k, kind in FIELDS.items()}
+    graph = StreamingGraph(t["graph.codes"], t["graph.offsets"],
+                           t["graph.num_edges"], int(d["graph.n_vertices"]))
+    cols = [t["store." + k] for k in (
+        "owner", "code", "epoch", "offsets", "vmin", "vmax", "packed",
+        "widths", "anchors_hi", "anchors_lo", "last_hi", "last_lo",
+        "slot_epoch")]
+    store = WalkStore(*cols, int(d["store.length"]), int(d["store.n_walks"]),
+                      int(d["store.n_vertices"]), int(d["store.chunk_b"]))
+    pending = PendingBlocks(t["pending.owner"], t["pending.code"],
+                            t["pending.epoch"], t["pending.slot"])
+    return EngineState(graph=graph, store=store, pending=pending,
+                       n_pending=int(d["n_pending"]), epoch=int(d["epoch"]),
+                       last_affected=t["last_affected"],
+                       total_affected=t["total_affected"],
+                       overflow=torch.tensor(bool(d["overflow"]), device=dev))
+
+
+def state_to_numpy(state: EngineState) -> dict:
+    src = {"graph": state.graph, "store": state.store,
+           "pending": state.pending}
+    out = {}
+    for k, kind in FIELDS.items():
+        obj, _, name = k.rpartition(".")
+        val = getattr(src[obj], name) if obj else getattr(state, name)
+        out[k] = _TO[kind](val)
+    for k in SCALARS:
+        obj, _, name = k.rpartition(".")
+        val = getattr(src[obj], name) if obj else getattr(state, name)
+        out[k] = bool(val) if k == "overflow" else int(val)
+    return out

@@ -1,0 +1,83 @@
+"""Public wrappers of the port's kernels (port of `repro/kernels/ops.py`).
+
+Each wrapper looks at where its tensors lie: on the CPU it runs the plain
+PyTorch version; on the card it launches the CUDA kernel, or raises if the
+launch fails. There is no fallback from the card to the plain version.
+`launches[name]` counts the kernel launches each wrapper made, so that a
+run can show that the main path went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import delta as _delta
+from repro_torch.kernels import range_search as _rs
+from repro_torch.kernels import szudzik as _szudzik
+
+KERNELS = ("szudzik_pair", "szudzik_unpair", "delta_decode",
+           "find_next_packed")
+launches = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        launches[name] = 0
+
+
+def _on_card(*tensors: torch.Tensor) -> bool:
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"kernel operands on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {dev}")
+
+
+def szudzik_pair(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """int64 operands < 2^32 -> biased int64 Szudzik codes."""
+    x, y = torch.broadcast_tensors(x, y)
+    if not _on_card(x, y):
+        return _szudzik.pair_plain(x, y)
+    out = _szudzik.pair_cuda(x, y)
+    launches["szudzik_pair"] += 1
+    return out
+
+
+def szudzik_unpair(z: torch.Tensor):
+    """biased int64 codes -> (x, y) int64."""
+    if not _on_card(z):
+        return _szudzik.unpair_plain(z)
+    out = _szudzik.unpair_cuda(z)
+    launches["szudzik_unpair"] += 1
+    return out
+
+
+def delta_decode(packed, widths, anchors_hi, anchors_lo, rows):
+    """Decode chunks `rows` (int64 [R]) -> biased int64 codes [R, 128]."""
+    if not _on_card(packed, widths, anchors_hi, anchors_lo, rows):
+        return _delta.decode_rows_plain(packed, widths, anchors_hi,
+                                        anchors_lo, rows)
+    out = _delta.decode_rows_cuda(packed, widths, anchors_hi, anchors_lo,
+                                  rows)
+    launches["delta_decode"] += 1
+    return out
+
+
+def find_next_packed(packed, widths, anchors_hi, anchors_lo, chunk_idx,
+                     f_targets):
+    """Packed FINDNEXT: chunk_idx [Q, K], f_targets int64 [Q] ->
+    (v int64 [Q], found bool [Q]), first hitting chunk wins."""
+    if not _on_card(packed, widths, anchors_hi, anchors_lo, chunk_idx,
+                    f_targets):
+        return _rs.find_next_packed_plain(packed, widths, anchors_hi,
+                                          anchors_lo, chunk_idx, f_targets)
+    out = _rs.find_next_packed_cuda(packed, widths, anchors_hi, anchors_lo,
+                                    chunk_idx, f_targets)
+    launches["find_next_packed"] += 1
+    return out
+
+
+candidate_chunks = _rs.candidate_chunks
