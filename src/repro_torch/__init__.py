@@ -9,3 +9,7 @@ unless the caller passes `device="cpu"`.
 Code representation: see `repro_torch._u64` (u64 codes as int64 XOR 2^63,
 u32 columns as int32 bits).
 """
+
+# the core first: its modules and the kernel wrappers import each other, and
+# this order initialises every one of them whichever module is asked for
+from repro_torch import core  # noqa: E402,F401

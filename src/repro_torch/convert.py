@@ -1,6 +1,7 @@
 """Carry engine state between the JAX package and the port, exactly.
 
-`state_from_numpy` takes the fields of the reference's `StreamingGraph`,
+`config_from` carries a reference `WalkConfig` (its walk model included)
+over to the port's. `state_from_numpy` takes the fields of the reference's `StreamingGraph`,
 `WalkStore`, `PendingBlocks` and `EngineState` as numpy arrays (in the
 reference's dtypes: uint64 codes, uint32 columns) in a flat dict keyed
 `"graph.codes"`, `"store.owner"`, ... (see FIELDS), and builds the port's
@@ -14,9 +15,16 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch._u64 import from_u32_numpy, from_u64_numpy, to_u32_numpy, to_u64_numpy
+from repro_torch.core.corpus import WalkConfig
 from repro_torch.core.graph import StreamingGraph
 from repro_torch.core.store import WalkStore
 from repro_torch.core.update import EngineState, PendingBlocks
+from repro_torch.core.walkers import WalkModel
+
+# the reference's megakernel backends -> the port's
+MEGAKERNEL_NAMES = {"off": "off", "auto": "auto", "pallas": "cuda",
+                    "interpret": "torch", "pallas-interpret": "torch",
+                    "xla-ref": "ref"}
 
 # field -> its representation: "u64" codes, "u32" columns, "i32" columns
 FIELDS = {
@@ -40,6 +48,18 @@ _FROM = {"u64": from_u64_numpy, "u32": from_u32_numpy,
              np.array(a, dtype=np.int32)).to(device)}
 _TO = {"u64": to_u64_numpy, "u32": to_u32_numpy,
        "i32": lambda t: t.detach().cpu().numpy().astype(np.int32)}
+
+
+def config_from(cfg) -> WalkConfig:
+    """A reference `WalkConfig` (any object with its fields) -> the port's:
+    the walk model's order, p, q, trials, sampler and window width, and the
+    megakernel backend under its port name."""
+    m = cfg.model
+    model = WalkModel(order=m.order, p=m.p, q=m.q, n_trials=m.n_trials,
+                      sampler=m.sampler, dmax=m.dmax)
+    return WalkConfig(n_walks_per_vertex=cfg.n_walks_per_vertex,
+                      length=cfg.length, model=model, chunk_b=cfg.chunk_b,
+                      megakernel=MEGAKERNEL_NAMES[cfg.megakernel])
 
 
 def state_from_numpy(d: dict, device=None) -> EngineState:

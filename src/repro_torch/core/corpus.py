@@ -12,7 +12,7 @@ import torch
 from repro_torch import random as jr
 from repro_torch.core.graph import StreamingGraph
 from repro_torch.core.store import WalkStore
-from repro_torch.core.walkers import DEEPWALK, WalkModel, check_order, sample_next
+from repro_torch.core.walkers import DEEPWALK, WalkModel, check_model, sample_next
 from repro_torch.kernels import ops
 
 
@@ -21,19 +21,22 @@ class WalkConfig(NamedTuple):
     length: int = 80
     model: WalkModel = DEEPWALK
     chunk_b: int = 128
-    # the fused rewalk megakernel and the stream metrics are later slices:
-    # only "off"/"auto" (= off) and metrics=False are accepted
+    # the fused rewalk step: "auto" consults the kernels/megakernel registry
+    # (default off), or "off", or a megakernel backend ("cuda", "torch",
+    # "ref"; the reference's "pallas" is "cuda" here)
     megakernel: str = "auto"
+    # the stream metrics (obs/) are a later slice: only False is accepted
     metrics: bool = False
 
 
 def check_config(cfg: WalkConfig) -> None:
-    """Raise on the options this slice does not port."""
-    check_order(cfg.model)
-    if cfg.megakernel not in ("off", "auto"):
-        raise NotImplementedError(
-            f"megakernel={cfg.megakernel!r}: the fused rewalk kernel is not "
-            "ported yet; use 'off' or 'auto'")
+    """Raise on an unknown option, or one this port does not have yet."""
+    from repro_torch.kernels import megakernel
+    check_model(cfg.model)
+    if cfg.megakernel not in ("off", "auto") + megakernel.BACKENDS:
+        raise ValueError(f"unknown megakernel backend {cfg.megakernel!r}; "
+                         f"expected one of "
+                         f"{megakernel.BACKENDS + ('off', 'auto')}")
     if cfg.metrics:
         raise NotImplementedError("WalkConfig.metrics: obs/ is not ported yet")
 

@@ -139,9 +139,21 @@ class StreamingGraph:
     def sample_neighbor(self, key, v):
         """Uniform neighbor of v (DeepWalk transition); v itself if
         isolated. Draws `randint(key, v.shape, 0, max(deg, 1))` exactly as
-        the reference (graph.py:147)."""
+        the reference (graph.py:147); keys [K, 2] give [K, *v.shape], one
+        draw of the whole batch per key."""
         start = self.offsets[v]
         deg = self.offsets[v + 1] - start
         r = jr.randint(key, v.shape, 0, torch.clamp(deg, min=1))
+        idx = (start + r).clamp(max=self.codes.shape[0] - 1)
+        return torch.where(deg > 0, lo32(self.codes[idx]), v)
+
+    def sample_neighbor_per_key(self, keys, v):
+        """One uniform neighbor per key: keys [..., 2], v broadcast to the
+        key batch -> int64 [...], the draws of `jax.vmap` of the reference's
+        `sample_neighbor(k, v)` over scalar lanes."""
+        v = torch.broadcast_to(v, keys.shape[:-1])
+        start = self.offsets[v]
+        deg = self.offsets[v + 1] - start
+        r = jr.randint(keys, (), 0, torch.clamp(deg, min=1))
         idx = (start + r).clamp(max=self.codes.shape[0] - 1)
         return torch.where(deg > 0, lo32(self.codes[idx]), v)

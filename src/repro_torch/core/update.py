@@ -1,9 +1,13 @@
 """Batch walk update (paper §6.2, Algorithm 2) and merge (App. A); port of
-`repro/core/update.py` for order-1 walks.
+`repro/core/update.py`.
 
 The engine state is a base WalkStore plus fixed-capacity pending version
 blocks (one per processed edge batch). One `stream_step_aux` is: policy
 merge -> graph update -> MAV -> re-walk -> pending append (-> eager merge).
+Order-2 walks read their prefix (the vertex before p_min) through the
+overlay of base + pending (core/overlay.py), and `WalkConfig.megakernel`
+selects the fused rewalk step (kernels/megakernel.py) instead of the
+unfused loop; both write the same blocks bit for bit.
 
 The reference runs a stream inside one `lax.scan` with `lax.cond` merges
 and donated buffers. Here the stream is a host loop: the merge schedule
@@ -29,10 +33,11 @@ from repro_torch.core.corpus import WalkConfig, check_config, walk_start_vertex
 from repro_torch.core.graph import StreamingGraph, as_ids
 from repro_torch.core.mav import (MAV, gather_touched_segments, keyed_pmin,
                                   mav_from_keyed, touched_vertices)
+from repro_torch.core.overlay import Overlay
 from repro_torch.core.store import PAD_EPOCH, WalkStore
 from repro_torch.core.utils import compact_nonzero, lexsort, seg_searchsorted
 from repro_torch.core.walkers import sample_next
-from repro_torch.kernels import ops
+from repro_torch.kernels import megakernel, ops
 
 I32 = torch.int32
 I64 = torch.int64
@@ -62,6 +67,10 @@ class PendingBlocks(NamedTuple):
             code=torch.full(shape, BIAS, dtype=I64, device=device),
             epoch=torch.full(shape, PAD_EPOCH, dtype=I32, device=device),
             slot=torch.zeros(shape, dtype=I32, device=device))
+
+    def filled(self, n: int) -> Optional["PendingBlocks"]:
+        """The first n blocks (views), or None when n is 0."""
+        return PendingBlocks(*(t[:n] for t in self)) if n else None
 
     def clear_(self) -> None:
         """Reset every block to dead entries, in place."""
@@ -220,6 +229,12 @@ class WalkEngine:
         start = walk_start_vertex(w, self.cfg.n_walks_per_vertex)
         return store.traverse(w, start, store.length - 1)
 
+    def overlay(self) -> Overlay:
+        """Mergeless read view over base + pending (valid until the next
+        update rewrites the pending tensors in place)."""
+        return Overlay.build(self.state.store,
+                             self.state.pending.filled(self.state.n_pending))
+
 
 # ------------------------------------------------------------------ the step
 
@@ -235,8 +250,9 @@ def _apply_update(state: EngineState, ins_src, ins_dst, del_src, del_dst,
         mav, overflow = _mav(state, ins_src, ins_dst, del_src, del_dst,
                              mav_capacity)
     with record_function("wharf.rewalk"):
-        block, slot_epoch, n_aff, aux = _rewalk(key, graph, state.store, mav,
-                                                state.epoch + 1, cfg, capacity)
+        block, slot_epoch, n_aff, aux = _rewalk(
+            key, graph, state.store, state.pending.filled(state.n_pending),
+            mav, state.epoch + 1, cfg, capacity)
     pending = state.pending
     j = state.n_pending            # in place: the reference donates pending
     pending.owner[j] = block.owner
@@ -288,12 +304,14 @@ class VersionBlock(NamedTuple):
     slot: torch.Tensor
 
 
-def _rewalk(key, graph: StreamingGraph, store: WalkStore, mav: MAV,
-            new_epoch: int, cfg: WalkConfig, capacity: int):
-    """Lines 4-11 of Algorithm 2 (the unfused path, order 1): re-walk up to
-    `capacity` affected walks from p_min with fresh draws on the updated
-    graph; emit triplets at positions p_min..l-1 (the terminal one points
-    to itself) and bump their slot versions. Affected walks beyond
+def _rewalk(key, graph: StreamingGraph, store: WalkStore,
+            pending: Optional[PendingBlocks], mav: MAV, new_epoch: int,
+            cfg: WalkConfig, capacity: int):
+    """Lines 4-11 of Algorithm 2: re-walk up to `capacity` affected walks
+    from p_min with fresh draws on the updated graph; emit triplets at
+    positions p_min..l-1 (the terminal one points to itself) and bump their
+    slot versions. `pending` holds the filled version blocks (or None): an
+    order-2 walk reads its prefix through them. Affected walks beyond
     `capacity` are dropped without a flag, as in the reference
     (compact_nonzero)."""
     dev = store.device
@@ -304,23 +322,41 @@ def _rewalk(key, graph: StreamingGraph, store: WalkStore, mav: MAV,
     v_at_pmin = mav.v_min[walk_ids]
     f_base = walk_ids * length
 
-    owners = torch.empty((capacity, length), dtype=I32, device=dev)
-    codes = torch.empty((capacity, length), dtype=I64, device=dev)
-    emits = torch.empty((capacity, length), dtype=torch.bool, device=dev)
-    keys = jr.split(key, length)
-    cur, prev = v_at_pmin, v_at_pmin
-    for p in range(length):
-        cur = torch.where(p_min == p, v_at_pmin, cur)
-        is_term = p == length - 1   # the terminal triplet points to itself
-        nxt = cur if is_term else sample_next(keys[p], graph, cur, prev,
-                                              cfg.model)
-        codes[:, p] = ops.szudzik_pair(f_base + p, nxt)
-        past = p >= p_min
-        emits[:, p] = lane_valid & past
-        owners[:, p] = cur.to(I32)
-        prev = torch.where(past, cur, prev)
-        if not is_term:
-            cur = torch.where(past, nxt, cur)
+    req = (cfg.megakernel if cfg.megakernel != "auto"
+           else megakernel.default_backend_request())
+    backend = megakernel.resolve_backend(req, dev)
+    if backend is not None:
+        megakernel.check_supported(store, cfg, backend)
+        owners, codes, emits = megakernel.fused_scan(
+            key, graph, store, pending, walk_ids, lane_valid, p_min,
+            v_at_pmin, cfg, backend)
+    else:
+        if cfg.model.order == 2:
+            # the vertex before p_min, read through base + pending (earlier
+            # blocks may have rewritten prefix slots)
+            with record_function("wharf.prefix"):
+                view = (store if pending is None
+                        else Overlay.build(store, pending))
+                prev0 = _prefix_prev(view, walk_ids, lane_valid, p_min, cfg)
+        else:
+            prev0 = v_at_pmin
+        owners = torch.empty((capacity, length), dtype=I32, device=dev)
+        codes = torch.empty((capacity, length), dtype=I64, device=dev)
+        emits = torch.empty((capacity, length), dtype=torch.bool, device=dev)
+        keys = jr.split(key, length)
+        cur, prev = v_at_pmin, prev0
+        for p in range(length):
+            cur = torch.where(p_min == p, v_at_pmin, cur)
+            is_term = p == length - 1   # the terminal triplet points to itself
+            nxt = cur if is_term else sample_next(keys[p], graph, cur, prev,
+                                                  cfg.model)
+            codes[:, p] = ops.szudzik_pair(f_base + p, nxt)
+            past = p >= p_min
+            emits[:, p] = lane_valid & past
+            owners[:, p] = cur.to(I32)
+            prev = torch.where(past, cur, prev)
+            if not is_term:
+                cur = torch.where(past, nxt, cur)
     owners, codes, emits = owners.reshape(-1), codes.reshape(-1), emits.reshape(-1)
 
     epoch = torch.where(emits, new_epoch, PAD_EPOCH).to(I32)
@@ -336,6 +372,24 @@ def _rewalk(key, graph: StreamingGraph, store: WalkStore, mav: MAV,
                          slot=torch.where(emits, slots, 0).to(I32))
     aux = UpdateAux(walk_ids=walk_ids, lane_valid=lane_valid, p_min=p_min)
     return block, slot_epoch, affected.sum(), aux
+
+
+def _prefix_prev(view, walk_ids, lane_valid, p_min, cfg: WalkConfig):
+    """Each walk's vertex at max(p_min - 1, 0) through `view` (a store or an
+    overlay). The reference traverses all l-1 positions of every lane and
+    reads this one column; the port walks each valid lane only as far as
+    that column (the same FINDNEXTs, in the same order), and leaves the
+    padding lanes, which emit nothing, at their start."""
+    cur = walk_start_vertex(walk_ids, cfg.n_walks_per_vertex)
+    stop = torch.where(lane_valid, (p_min - 1).clamp(min=0), 0)
+    n = int(stop.max()) if stop.numel() else 0
+    for p in range(n):
+        lanes = torch.nonzero(stop > p).reshape(-1)
+        c = cur[lanes]
+        nxt, found = view.find_next(c, walk_ids[lanes],
+                                    torch.full_like(lanes, p))
+        cur[lanes] = torch.where(found, nxt, c)
+    return cur
 
 
 # ------------------------------------------------------------------- merges

@@ -25,6 +25,7 @@ FLAGS = ["-std=c++17", "-O3", ARCH, "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 # C signature of each kernel entry point (all return cudaGetLastError())
 SIGNATURES = {
     "repro_szudzik_pair": [_P, _P, _P, _LL, _P],
@@ -32,6 +33,12 @@ SIGNATURES = {
     "repro_delta_decode": [_P, _P, _P, _P, _P, _P, _LL, _P],
     "repro_find_next_packed": [_P, _P, _P, _P, _P, _P, _P, _P, _LL,
                                ctypes.c_int, _P],
+    "repro_intersect_next": [_P, _P, _P, _P, _P, _F, _F, _P, _P, _LL,
+                             ctypes.c_int, _P],
+    "repro_fused_rewalk_step": [_P, _P, _P, _P, _P, _LL, ctypes.c_int,
+                                _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _P, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, _F, _F, _P, _P, _LL, _P],
 }
 
 _lib = None

@@ -11,11 +11,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import delta as _delta
+from repro_torch.kernels import intersect as _intersect
+from repro_torch.kernels import megakernel as _mk
 from repro_torch.kernels import range_search as _rs
 from repro_torch.kernels import szudzik as _szudzik
 
 KERNELS = ("szudzik_pair", "szudzik_unpair", "delta_decode",
-           "find_next_packed")
+           "find_next_packed", "intersect_next", "fused_rewalk_step")
 launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -77,6 +79,31 @@ def find_next_packed(packed, widths, anchors_hi, anchors_lo, chunk_idx,
     out = _rs.find_next_packed_cuda(packed, widths, anchors_hi, anchors_lo,
                                     chunk_idx, f_targets)
     launches["find_next_packed"] += 1
+    return out
+
+
+def intersect_next(nbrs_v, nbrs_p, prev, u_group, u_rank, inv_p: float,
+                   inv_q: float):
+    """The exact factorized node2vec step: windows int64 [B, D], prev int64
+    [B], uniforms f32 [B], f32 weights -> (nxt int64 [B], found bool [B]).
+    On the card, windows are padded with SENT to a multiple of 128."""
+    if not _on_card(nbrs_v, nbrs_p, prev, u_group, u_rank):
+        return _intersect.factorized_plain(nbrs_v, nbrs_p, prev, u_group,
+                                           u_rank, inv_p, inv_q)
+    nbrs_v, nbrs_p = _intersect.pad_windows(nbrs_v, nbrs_p)
+    out = _intersect.factorized_cuda(nbrs_v, nbrs_p, prev, u_group, u_rank,
+                                     inv_p, inv_q)
+    launches["intersect_next"] += 1
+    return out
+
+
+def fused_rewalk_step(store, step):
+    """One fused rewalk step (`megakernel.FusedStep`) over the packed
+    `store` -> (nxt int64 [B], code biased int64 [B])."""
+    if not _on_card(store.packed, step.cur):
+        return _mk.fused_step_plain(store, step)
+    out = _mk.fused_step_cuda(store, step)
+    launches["fused_rewalk_step"] += 1
     return out
 
 

@@ -53,30 +53,41 @@ def as_key(key, device) -> torch.Tensor:
 
 
 def _iota_bits(key: torch.Tensor, n: int):
-    """threefry of the flat counters 0..n-1 (the partitionable layout:
+    """threefry of the flat counters 0..n-1 under every key of `key`
+    ([..., 2]) -> two int64 tensors [..., n] (the partitionable layout:
     counter hi word 0, lo word the index)."""
     if n >= 1 << 32:
         raise ValueError("random_bits: more than 2^32 counters")
     lo = torch.arange(n, dtype=torch.int64, device=key.device)
-    return threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(lo), lo)
+    return threefry2x32(key[..., 0:1], key[..., 1:2], torch.zeros_like(lo), lo)
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """`jax.random.split(key, num)` -> int64 [num, 2]."""
+    """`jax.random.split(key, num)` for each key of `key` ([..., 2]) ->
+    int64 [..., num, 2]."""
     b0, b1 = _iota_bits(key, num)
     return torch.stack([b0, b1], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
-    """`jax.random.fold_in(key, data)` for a scalar u32 `data`."""
+    """`jax.random.fold_in(key, data)` for u32 `data` of any shape that
+    broadcasts against the key batch: one key [2] and data [B] give [B, 2],
+    as `jax.vmap(lambda d: fold_in(key, d))(data)`."""
     d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & M32
-    b0, b1 = threefry2x32(key[0], key[1], torch.zeros_like(d), d)
-    return torch.stack([b0, b1])
+    b0, b1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    return torch.stack(torch.broadcast_tensors(b0, b1), dim=-1)
+
+
+def _draw_shape(key: torch.Tensor, shape) -> tuple:
+    """Keys [..., 2] draw `shape` each: the result is key batch + shape,
+    the draw of `jax.vmap` over the key batch."""
+    return tuple(key.shape[:-1]) + tuple(shape)
 
 
 def randint(key: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
     """`jax.random.randint(key, shape, minval, maxval)` with the int64 dtype
-    the reference draws under x64 -> int64 tensor on `maxval`'s device.
+    the reference draws under x64, for each key of `key` ([..., 2]) ->
+    int64 tensor [..., *shape] on the key's device.
 
     Two 64-bit words per element (`higher_bits`, `lower_bits`) and
     unsigned 64-bit remainders by the span, as `jax._src.random._randint`.
@@ -85,15 +96,15 @@ def randint(key: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
     mod s. Requires span < 2^31 (it is a vertex degree), so no product
     exceeds 2^62.
     """
-    shape = tuple(shape)
-    maxval = torch.as_tensor(maxval, dtype=torch.int64)
-    minval = torch.as_tensor(minval, dtype=torch.int64, device=maxval.device)
-    key = key.to(maxval.device)
-    n = math.prod(shape)
-    k_hi, k_lo = split(key, 2)
-    span = torch.broadcast_to(maxval - minval, shape).reshape(-1)
-    span = torch.where(torch.broadcast_to(maxval <= minval, shape).reshape(-1),
-                       torch.ones_like(span), span)
+    full = _draw_shape(key, shape)
+    batch = full[:len(full) - len(tuple(shape))]
+    n = math.prod(tuple(shape))
+    maxval = torch.as_tensor(maxval, dtype=torch.int64, device=key.device)
+    minval = torch.as_tensor(minval, dtype=torch.int64, device=key.device)
+    ks = split(key, 2)
+    span = torch.broadcast_to(maxval - minval, full).reshape(batch + (n,))
+    span = torch.where(torch.broadcast_to(maxval <= minval, full)
+                       .reshape(batch + (n,)), torch.ones_like(span), span)
     t32 = torch.remainder(torch.full_like(span, 1 << 32), span)
     mult = (t32 * t32) % span
 
@@ -101,5 +112,27 @@ def randint(key: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
         h, l = _iota_bits(k, n)
         return ((h % span) * t32 + l % span) % span
 
-    offset = (word_mod(k_hi) * mult + word_mod(k_lo)) % span
-    return (torch.broadcast_to(minval, shape) + offset.reshape(shape))
+    offset = (word_mod(ks[..., 0, :]) * mult + word_mod(ks[..., 1, :])) % span
+    return torch.broadcast_to(minval, full) + offset.reshape(full)
+
+
+def uniform(key: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
+    """`jax.random.uniform(key, shape, dtype)` on [0, 1), for each key of
+    `key` ([..., 2]) -> [..., *shape].
+
+    The mantissa of 1.0 is filled from the top random bits (32-bit:
+    bits1 ^ bits2 of the counter's threefry; 64-bit: bits1 << 32 | bits2)
+    and 1.0 is subtracted, as `jax._src.random._uniform`; the scale by
+    (1 - 0) and the max with 0 change no value."""
+    full = _draw_shape(key, shape)
+    n = math.prod(tuple(shape))
+    b1, b2 = _iota_bits(key, n)
+    if dtype == torch.float32:
+        bits = ((b1 ^ b2) >> 9) | 0x3F800000
+        out = bits.to(torch.int32).view(torch.float32) - 1.0
+    elif dtype == torch.float64:
+        bits = (b1 << 20) | (b2 >> 12) | 0x3FF0000000000000
+        out = bits.view(torch.float64) - 1.0
+    else:
+        raise TypeError(f"uniform: float32 or float64, got {dtype}")
+    return out.reshape(full)

@@ -5,7 +5,9 @@ every module imports without a card, nvcc or triton; an entry point asked
 for the card (the default) raises when there is none."""
 import ast
 import importlib
+import os
 import pathlib
+import types
 
 import pytest
 import torch
@@ -40,7 +42,27 @@ def test_every_module_imports_without_a_card():
     assert _build._lib is None          # nothing was built at import
     assert _build.library_path().name.startswith("librepro_kernels_")
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "szudzik.cu", "delta.cu", "range_search.cu"}
+        "szudzik.cu", "delta.cu", "range_search.cu", "intersect.cu",
+        "megakernel.cu"}
+    assert set(_build.SIGNATURES) == {
+        "repro_szudzik_pair", "repro_szudzik_unpair", "repro_delta_decode",
+        "repro_find_next_packed", "repro_intersect_next",
+        "repro_fused_rewalk_step"}
+
+
+@pytest.mark.parametrize("module", ["repro_torch.kernels.ops",
+                                    "repro_torch.kernels.range_search",
+                                    "repro_torch.kernels.megakernel",
+                                    "repro_torch.core.overlay"])
+def test_each_module_imports_first_in_a_fresh_process(module):
+    """The core and the kernel wrappers import each other; any one of them
+    imported first must still work."""
+    import subprocess
+    import sys
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", f"import {module}"],
+                       capture_output=True, text=True, env=env, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
 
 
 def test_entry_points_raise_without_a_card():
@@ -68,3 +90,38 @@ def test_kernel_wrappers_never_fall_back():
         resolve_backend("cuda", torch.device("cpu"))
     with pytest.raises(ValueError):
         ops.szudzik_pair(x, x.to("meta"))
+
+
+def test_order2_wrappers_never_fall_back():
+    """The intersect and fused-step wrappers take their plain versions on
+    CPU tensors only; their kernels and an explicit "cuda" request raise
+    for CPU tensors."""
+    from repro_torch.kernels import intersect, megakernel, ops
+    from repro_torch.kernels.megakernel import FusedStep
+    win = torch.full((2, 128), intersect.SENT)
+    win[:, :3] = torch.tensor([1, 2, 3])
+    prev, u = torch.tensor([2, 9]), torch.tensor([0.5, 0.25])
+    before = dict(ops.launches)
+    got = ops.intersect_next(win, win, prev, u, u, 1.0, 1.0)
+    assert torch.equal(got[0], intersect.factorized_plain(win, win, prev, u, u,
+                                                          1.0, 1.0)[0])
+    assert ops.launches == before or torch.cuda.is_available()
+    with pytest.raises(ValueError):
+        intersect.factorized_cuda(win, win, prev, u, u, 1.0, 1.0)
+    with pytest.raises(ValueError):
+        intersect.factorized_next(win, win, prev, u, u, 1.0, 1.0,
+                                  backend="cuda")
+    with pytest.raises(ValueError):
+        megakernel.resolve_backend("cuda", torch.device("cpu"))
+    z = torch.zeros(2, dtype=torch.int64)
+    step = FusedStep(z, z, z, z.to(torch.int32), z, z, z, z.bool(), z.bool(),
+                     False, 8, ext_nxt=z)
+    with pytest.raises(ValueError):
+        megakernel.fused_step_cuda(types.SimpleNamespace(
+            packed=torch.zeros((1, 256), dtype=torch.int32),
+            widths=torch.zeros(1, dtype=torch.int32),
+            anchors_hi=torch.zeros(1, dtype=torch.int32),
+            anchors_lo=torch.zeros(1, dtype=torch.int32),
+            epoch=torch.zeros(1, dtype=torch.int32), n_chunks=1), step)
+    with pytest.raises(ValueError):
+        ops.intersect_next(win, win.to("meta"), prev, u, u, 1.0, 1.0)

@@ -49,3 +49,49 @@ def test_randint_scalar_bounds_and_empty_span():
         want = np.asarray(jax.random.randint(kj, (33,), lo, hi))
         got = jr.randint(kt, (33,), lo, hi).numpy()
         np.testing.assert_array_equal(want, got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_uniform_matches_jax(dtype):
+    tdt = getattr(torch, dtype)
+    for seed in range(0, 60, 3):
+        kj = jax.random.PRNGKey(seed)
+        kt = jr.PRNGKey(seed, device="cpu")
+        for shape in ((), (7,), (33, 2)):
+            want = np.asarray(jax.random.uniform(kj, shape, dtype=dtype))
+            got = jr.uniform(kt, shape, tdt).numpy()
+            assert got.dtype == want.dtype and got.shape == want.shape
+            np.testing.assert_array_equal(got.reshape(-1).view(np.uint8),
+                                          want.reshape(-1).view(np.uint8))
+            assert ((got >= 0) & (got < 1)).all()
+
+
+def test_per_lane_keys_match_vmap():
+    """One key per lane ([B, 2]): fold_in over lane ids, then split,
+    randint and uniform per key, as the reference's `jax.vmap` chain in
+    `_node2vec_step_perlane`."""
+    kj = jax.random.PRNGKey(17)
+    kt = jr.as_key(np.asarray(kj), "cpu")
+    lanes = np.array([0, 1, 5, 63, 2**31 - 1, 2**32 - 1], np.int64)
+    lk = jax.vmap(lambda i: jax.random.fold_in(kj, i))(jnp.asarray(lanes, jnp.uint32))
+    lkt = jr.fold_in(kt, torch.from_numpy(lanes))
+    np.testing.assert_array_equal(_np(lk), lkt.numpy())
+    sp = jax.vmap(lambda k: jax.random.split(k, 8))(lk)
+    spt = jr.split(lkt, 8)
+    np.testing.assert_array_equal(_np(sp), spt.numpy())
+    k12 = jax.vmap(jax.vmap(jax.random.split))(sp)           # [B, 8, 2, 2]
+    k12t = jr.split(spt, 2)
+    np.testing.assert_array_equal(_np(k12), k12t.numpy())
+    maxval = np.arange(1, 7)[:, None] * np.arange(1, 9)[None]  # [B, 8]
+    want = jax.vmap(jax.vmap(lambda k, m: jax.random.randint(k, (), 0, m)))(
+        k12[:, :, 0], jnp.asarray(maxval))
+    got = jr.randint(k12t[:, :, 0], (), 0, torch.from_numpy(maxval))
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    want = jax.vmap(jax.vmap(lambda k: jax.random.uniform(k, ())))(k12[:, :, 1])
+    got = jr.uniform(k12t[:, :, 1], (), torch.float64)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    # a batch of keys, each drawing a whole vector
+    ks = jax.random.split(kj, 4)
+    want = jax.vmap(lambda k: jax.random.randint(k, (5,), 0, jnp.arange(1, 6)))(ks)
+    got = jr.randint(jr.as_key(np.asarray(ks), "cpu"), (5,), 0, torch.arange(1, 6))
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())

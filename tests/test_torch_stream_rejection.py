@@ -1,0 +1,12 @@
+"""The port's order-2 `run_stream` with the rejection sampler against the JAX
+package's, both merge policies x both merge impls, bit for bit (graph
+codes, every store array, slot_epoch, pending blocks, traversed corpus)."""
+import pytest
+
+from _torch_parity import check_order2_stream
+
+
+@pytest.mark.parametrize("policy", ["on-demand", "eager"])
+@pytest.mark.parametrize("merge_impl", ["interleave", "lexsort"])
+def test_order2_rejection_run_stream_matches_reference(policy, merge_impl):
+    check_order2_stream("rejection", policy, merge_impl)
