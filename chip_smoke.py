@@ -13,17 +13,28 @@ every phase passed):
   3. full width, the `wharf-stream` configuration (configs/wharf_stream.py)
      at 2^18 vertices: corpus, 8 mixed batches through run_stream, merge,
      packed decode, traverse, point FINDNEXT — the order-1 main path, with
-     the kernel launch counts read just after it
+     the kernel launch counts read just after it; a host copy of the
+     merged engine is kept for phase 3b
+ 3b. full width, the downstream maintainer over phase 3's configuration:
+     the same graph, corpus and update keys through
+     `EmbeddingMaintainer.run_stream`, SGNS at dim 128, window 5, 5
+     negatives, 2^20 pairs a batch; its merged engine must equal phase 3's
+     bit for bit, the first batch's loss per pair must be 6 ln 2 and leave
+     the input table unchanged (the output table starts at 0); one more
+     batch under torch.profiler
   4. full width, `wharf-stream` order 2 (node2vec, factorized, dmax 128)
      at 2^18 vertices, insert-only batches: one corpus, then the batches
      unfused and again fused from the same corpus and keys; the two runs'
      stores, slot_epoch and pending blocks must be bit-identical; merge,
      overlay traverse = post-merge traverse; one more batch of each path
      under torch.profiler — the order-2 main paths, counts read just after
-  5. each kernel against its plain PyTorch version on the card, bit-exact,
-     on the main paths' tensors plus edge cases, timed with CUDA events
-     beside its bound (bytes at 3.35 TB/s or operations at 67 T/s)
-Each phase prints one JSON line.
+  5. each kernel against its plain PyTorch version on the card, on the
+     main paths' tensors plus edge cases, timed with CUDA events beside its
+     bound (bytes at 3.35 TB/s or operations at 67 T/s): kernels 1-6 bit
+     for bit; kernel 7 (the f32 SGNS step) within loss rtol 1e-5 and
+     gradients rtol 1e-5 / atol 1e-6, its sums being taken in another order
+Phase 2 also runs a small maintainer on the card against the CPU and
+against a plain engine. Each phase prints one JSON line.
 """
 import contextlib
 import json
@@ -46,8 +57,9 @@ from repro_torch.core.corpus import walk_start_vertex  # noqa: E402
 from repro_torch.core.update import WalkEngine  # noqa: E402
 from repro_torch.core.utils import seg_searchsorted  # noqa: E402
 from repro_torch.core.walkers import WalkModel  # noqa: E402
+from repro_torch.downstream import EmbeddingMaintainer, MaintainerConfig  # noqa: E402
 from repro_torch.kernels import _build, delta, intersect, megakernel, ops  # noqa: E402
-from repro_torch.kernels import range_search, szudzik  # noqa: E402
+from repro_torch.kernels import range_search, sgns, szudzik  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12      # H100 float32 outside the tensor cores
@@ -66,12 +78,23 @@ REDUCED = {"n_vertices": "2^20 -> 2^18 (8 pending blocks of a 2^20 corpus exceed
 
 # wharf-stream order 2: the stream_10k_n2v_factorized / _megakernel shapes
 # (src/repro/configs/wharf_stream.py:26-32, 178-194), cut as CONFIG
-N2V = dict(CONFIG, batch_deletes=0, n_batches=7, p=1.0, q=1.0,
+N2V = dict(CONFIG, batch_deletes=0, n_batches=3, p=1.0, q=1.0,
            sampler="factorized", dmax=128)
-N2V_REDUCED = dict(REDUCED, n_batches="7 timed batches and 1 profiled batch "
-                   "per path (the profiled one with 3 pending blocks)")
+N2V_REDUCED = dict(REDUCED, n_batches="3 timed batches and 1 profiled batch "
+                   "per path (the profiled one with 3 pending blocks; the run's "
+                   "time limit)")
 ORDER1_KERNELS = ("szudzik_pair", "szudzik_unpair", "delta_decode",
                   "find_next_packed")
+
+# the maintainer over CONFIG's engine: the repo's SGNSConfig widths
+# (src/repro/models/embeddings.py:28-35; DeepWalk/node2vec's d = 128)
+MAINT = dict(dim=128, window=5, n_negative=5, lr=0.01, skip_stale_prefix=True,
+             max_pairs=1 << 20)
+MAINT_REDUCED = dict(REDUCED, max_pairs="0 (every live pair: ~2.6M affected walks x 770 "
+                     "pairs a batch) -> 2^20 pairs a batch (1,362 walks)",
+                     n_batches="8 timed batches and 1 profiled batch")
+SGNS_LOSS_RTOL = 1e-5
+SGNS_GRAD_TOL = dict(rtol=1e-5, atol=1e-6)
 
 KERNEL_META = {
     "szudzik_pair": ("src/repro_torch/kernels/csrc/szudzik.cu",
@@ -86,11 +109,18 @@ KERNEL_META = {
                        "src/repro/kernels/intersect.py:199"),
     "fused_rewalk_step": ("src/repro_torch/kernels/csrc/megakernel.cu",
                           "src/repro/kernels/megakernel.py:217"),
+    "sgns_step": ("src/repro_torch/kernels/csrc/sgns.cu",
+                  "src/repro/kernels/sgns.py:113"),
 }
 
 
+_T0 = time.perf_counter()
+
+
 def log(tag, **kw):
-    print(json.dumps({"phase": tag, **kw}), flush=True)
+    """One JSON line per phase, with the seconds since the run started."""
+    print(json.dumps({"phase": tag, "elapsed_s": time.perf_counter() - _T0, **kw}),
+          flush=True)
 
 
 def sync_time(fn):
@@ -173,6 +203,61 @@ def phase_small_e2e(dev):
         fields_compared=fields)
 
 
+def phase_small_maintainer(dev):
+    """The maintainer on the card against the same maintainer on the CPU,
+    from the same tables, and against a plain engine on the same update
+    keys: the engines bit for bit, the pair and affected counts equal, the
+    summed loss within rtol 1e-5 and the tables within rtol 2e-4 / atol
+    1e-5 (the reference's tolerance; the card's scatter-add uses atomics).
+    Under a pair budget, as at full width (the lane subsample): training
+    every live pair at this size puts ~470 pairs a batch on each input
+    row, where lr 0.01 diverges (tests/test_torch_cuda.py runs that case
+    at lr 0.001)."""
+    rng = np.random.default_rng(4)
+    n = 512
+    src, dst = hub_edges(rng, n, 6000, hubs=4, hub_degree=300)
+    ins = rng.integers(0, n, size=(2, 6, 60))
+    dels = rng.integers(0, n, size=(2, 6, 20))
+    wcfg = WalkConfig(n_walks_per_vertex=4, length=16)
+    mcfg = MaintainerConfig(walk=wcfg, n_vertices=n, rewalk_capacity=n * 4, max_pending=4,
+                            **dict(MAINT, max_pairs=4096))
+    runs = []
+    for d in (torch.device("cpu"), dev):
+        ops.reset_launches()    # the card's run comes last
+        g = StreamingGraph.from_edges(src, dst, n, 1 << 15, device=d)
+        store = generate_corpus(jr.PRNGKey(1, d), g, wcfg)
+        mt = EmbeddingMaintainer(graph=g, store=store, cfg=mcfg, key=jr.PRNGKey(3, d))
+        if d.type == "cuda":   # the CPU run's tables (normal's log1p differs by ulps)
+            mt.load_state(mt.state._replace(
+                params={k: v.to(d) for k, v in runs[0]["init"].items()}))
+        init = {k: v.clone() for k, v in mt.params.items()}
+        m = mt.run_stream(jr.PRNGKey(2, d), ins[0], ins[1], dels[0], dels[1],
+                          train_key=jr.PRNGKey(5, d))
+        plain = WalkEngine(graph=g, store=store, cfg=wcfg, rewalk_capacity=n * 4,
+                           max_pending=4)
+        plain.run_stream(jr.PRNGKey(2, d), ins[0], ins[1], dels[0], dels[1])
+        st, st_plain = state_to_numpy(mt.state.engine), state_to_numpy(plain.state)
+        for k in st:
+            if not np.array_equal(st[k], st_plain[k]):
+                raise AssertionError(f"maintainer engine != plain engine in {k} ({d})")
+        runs.append(dict(state=st, metrics=[t.cpu() for t in m], init=init,
+                         params=mt.params))
+    cpu, card = runs
+    for k in cpu["state"]:
+        if not np.array_equal(cpu["state"][k], card["state"][k]):
+            raise AssertionError(f"maintainer: cuda vs cpu engine differ in {k}")
+    (loss_c, pairs_c, aff_c), (loss_d, pairs_d, aff_d) = cpu["metrics"], card["metrics"]
+    assert torch.equal(pairs_c, pairs_d) and torch.equal(aff_c, aff_d), "pair counts"
+    torch.testing.assert_close(loss_d, loss_c, rtol=1e-5, atol=0)
+    for k in ("in", "out"):
+        torch.testing.assert_close(card["params"][k].cpu(), cpu["params"][k],
+                                   rtol=2e-4, atol=1e-5)
+    assert ops.launches["sgns_step"] == 6, ops.launches
+    log("small_maintainer", ok=True, n_vertices=n, batches=6, max_pairs=4096,
+        n_pairs=pairs_d.tolist(), n_affected=aff_d.tolist(),
+        loss_rel_diff=float(((loss_d - loss_c).abs() / loss_c.abs()).max()))
+
+
 # ---------------------------------------------------------------- phase 3
 
 
@@ -217,6 +302,9 @@ def phase_full(dev):
         affected.append(int(aff[0]))
         batch_launches.append({k: ops.launches[k] - before[k] for k in ORDER1_KERNELS})
     _, t_merge = sync_time(eng.merge)
+    # the merged engine, for phase 3b's maintainer to equal bit for bit
+    host_state = {k: v.to("cpu", copy=True)
+                  for k, v in state_tensors(eng, pending=False).items()}
     store = eng.store
     decoded, t_decode = sync_time(lambda: store.packed_view().decode())
     g2 = torch.Generator(device=dev)
@@ -250,8 +338,8 @@ def phase_full(dev):
         "point FINDNEXT: kernel != plain"
     for k in ORDER1_KERNELS:
         assert launches[k] > 0, f"kernel {k} was not launched on the main path"
-    prof = profile_batch(eng, jr.fold_in(key, nb), [x[nb:] for x in ins],
-                         [x[nb:] for x in dels])
+    prof = profile_batch(lambda: eng.run_stream(
+        jr.fold_in(key, nb), ins[0][nb:], ins[1][nb:], dels[0][nb:], dels[1][nb:]))
     res = dict(config=CONFIG, n_walks=n_walks, triplets=store.size,
                chunks=store.n_chunks, edges=int(eng.graph.num_edges),
                graph_build_s=t_graph, corpus_build_s=t_corpus,
@@ -263,7 +351,90 @@ def phase_full(dev):
                launches_per_batch=batch_launches, profiled_batch=prof)
     log("reduced", **REDUCED)
     log("full_width", **res)
-    return res, dict(store=store, queries=(qv, w, qp), n_walks=n_walks, gen=g2)
+    return res, dict(store=store, queries=(qv, w, qp), n_walks=n_walks, gen=g2,
+                     host_state=host_state)
+
+
+def phase_maintainer(dev, host_state):
+    """Phase 3b: the downstream maintainer over phase 3's graph, corpus and
+    update keys (the same generator draws), SGNS at MAINT's widths. The
+    counts are set to 0 before the timed batches and read just after
+    them; the operands of the last timed batch's SGNS call are kept for
+    phase 5."""
+    c = CONFIG
+    n = c["n_vertices"]
+    cfg = WalkConfig(n_walks_per_vertex=c["n_walks_per_vertex"],
+                     length=c["length"], chunk_b=c["chunk_b"])
+    n_walks = n * cfg.n_walks_per_vertex
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2022)
+    src, dst = uniform_pairs(gen, n, n * c["mean_degree"] // 2, dev)
+    nb, ni, nd = c["n_batches"], c["batch_inserts"], c["batch_deletes"]
+    ins = [x.reshape(nb + 1, ni) for x in uniform_pairs(gen, n, (nb + 1) * ni, dev)]
+    dels = [x.reshape(nb + 1, nd) for x in uniform_pairs(gen, n, (nb + 1) * nd, dev)]
+    torch.cuda.reset_peak_memory_stats()
+    graph = StreamingGraph.from_edges(src, dst, n, c["edge_capacity"], device=dev)
+    del src, dst
+    mcfg = MaintainerConfig(walk=cfg, n_vertices=n, rewalk_capacity=n_walks,
+                            max_pending=c["max_pending"], merge_policy=c["merge_policy"],
+                            merge_impl=c["merge_impl"], **MAINT)
+    mt = EmbeddingMaintainer(graph=graph, store=generate_corpus(jr.PRNGKey(0, dev), graph, cfg),
+                             cfg=mcfg, key=jr.PRNGKey(5, dev))
+    del graph
+    in0 = mt.params["in"].clone()
+    key, tkey = jr.PRNGKey(1, dev), jr.PRNGKey(6, dev)   # key: phase 3's update key
+
+    def batch(i):
+        return mt.run_stream(jr.fold_in(key, i), ins[0][i:i + 1], ins[1][i:i + 1],
+                             dels[0][i:i + 1], dels[1][i:i + 1],
+                             train_key=jr.fold_in(tkey, i))
+
+    batch_ms, n_pairs, n_affected, loss_per_pair = [], [], [], []
+    ops.reset_launches()    # ---- the maintainer's batches, counted from here
+    for i in range(nb):
+        with (keep_operands("sgns_step", 0) if i == nb - 1
+              else contextlib.nullcontext()) as got:
+            m, dt = sync_time(lambda: batch(i))
+        if i == 0:
+            in_unchanged = torch.equal(mt.params["in"], in0)
+        batch_ms.append(dt * 1e3)
+        n_pairs.append(int(m.n_pairs[0]))
+        n_affected.append(int(m.n_affected[0]))
+        loss_per_pair.append(float(m.loss_sum[0]) / max(n_pairs[-1], 1))
+    launches = dict(ops.launches)   # ---- read just after them
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del in0
+    kept = got.pop()
+
+    assert launches["sgns_step"] == nb, launches
+    assert not mt.mav_overflowed, "MAV gather overflow"
+    assert all(np.isfinite(loss_per_pair)), loss_per_pair
+    assert all(0 < p <= mcfg.pair_batch for p in n_pairs), (n_pairs, mcfg.pair_batch)
+    assert in_unchanged, "the input table changed in the first batch (out = 0, so du = 0)"
+    six_ln2 = 6 * float(np.log(2.0))
+    assert abs(loss_per_pair[0] / six_ln2 - 1) <= SGNS_LOSS_RTOL, (loss_per_pair[0], six_ln2)
+    # merge; the engine must equal phase 3's plain engine bit for bit
+    view = mt.engine_view()
+    _, t_merge = sync_time(view.merge)
+    for k, v in state_tensors(view, pending=False).items():
+        if not torch.equal(v.cpu(), host_state[k]):
+            raise AssertionError(f"maintainer engine != phase 3's engine in {k}")
+    mt.load_state(mt.state._replace(engine=view.state))
+    del view
+    tables_finite = all(bool(torch.isfinite(t).all()) for t in mt.params.values())
+    assert tables_finite, "a table holds a non-finite value"
+    prof = profile_batch(lambda: batch(nb), kernel="sgns_kernel")
+    res = dict(config=dict(CONFIG, **MAINT), n_walks=n_walks,
+               pairs_per_walk=mcfg.pairs_per_walk, pair_batch=mcfg.pair_batch,
+               lanes_trained=-(-mcfg.pair_batch // mcfg.pairs_per_walk),
+               batch_ms=batch_ms, n_pairs=n_pairs, n_affected=n_affected,
+               loss_per_pair=loss_per_pair, first_loss_per_pair_over_6ln2=loss_per_pair[0] / six_ln2,
+               in_table_unchanged_after_batch_1=in_unchanged,
+               engine_equals_phase3=True, merge_s=t_merge, peak_mem_gb=peak,
+               launches=launches, profiled_batch=prof)
+    log("reduced_maintainer", **MAINT_REDUCED)
+    log("maintainer", **res)
+    return res, kept
 
 
 def phase_full_n2v(dev):
@@ -334,8 +505,8 @@ def phase_full_n2v(dev):
         name, at = (("intersect_next", cfg.length // 2) if path == "unfused"
                     else ("fused_rewalk_step", 5))
         with keep_operands(name, at) as got:
-            prof = profile_batch(eng, jr.fold_in(key, nb), [x[nb:] for x in ins],
-                                 no_dels)
+            prof = profile_batch(lambda: eng.run_stream(
+                jr.fold_in(key, nb), ins[0][nb:], ins[1][nb:], *no_dels))
         assert got, f"{name}: operands not kept"
         kept[name] = got.pop()
         if path == "unfused":   # off the card while the fused path runs
@@ -402,30 +573,37 @@ def keep_operands(name: str, k: int):
         setattr(ops, name, wrapped)
 
 
-def state_tensors(eng) -> dict:
-    """Every tensor of an engine's state that the order-2 comparison holds
-    equal: graph codes, every store array (slot_epoch included), the
-    pending blocks, the counters."""
+def state_tensors(eng, pending: bool = True) -> dict:
+    """Every tensor of an engine's state that the comparisons hold equal:
+    graph codes, every store array (slot_epoch included), the counters and
+    (unless `pending=False`) the pending blocks."""
     st = eng.state
     out = {"graph.codes": st.graph.codes, "total_affected": st.total_affected}
     for f in ("owner", "code", "epoch", "offsets", "vmin", "vmax", "packed",
               "widths", "anchors_hi", "anchors_lo", "last_hi", "last_lo",
               "slot_epoch"):
         out["store." + f] = getattr(st.store, f)
-    for f in ("owner", "code", "epoch", "slot"):
-        out["pending." + f] = getattr(st.pending, f)
+    if pending:
+        for f in ("owner", "code", "epoch", "slot"):
+            out["pending." + f] = getattr(st.pending, f)
     return out
 
 
-def profile_batch(eng, key, ins, dels):
-    """One more (non-merging) batch under torch.profiler: wall time, the
-    device's busy and idle share, and the top operators by device time."""
+LAYERS = ("wharf.", "maintainer.")   # the record_function scopes of the port
+
+
+def profile_batch(run, kernel: str = None):
+    """One more batch, `run()`, under torch.profiler: wall time, the
+    device's busy and idle share, the device and host time of each layer
+    scope, the top operators by device time and, if named, the device
+    time of the kernels whose name holds `kernel` and their share of the
+    busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run_stream(key, ins[0], ins[1], dels[0], dels[1])
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # kernel time from the launching ops (user-annotation ranges, which the
@@ -434,18 +612,23 @@ def profile_batch(eng, key, ins, dels):
     busy_ms = sum(k.duration for e in ops_ for k in e.kernels) / 1e3
     if not busy_ms:
         return dict(wall_ms=wall * 1e3, device_busy="not measured")
-    layers = {}
+    layers, layers_host = {}, {}
     for e in ops_:
-        if e.name.startswith("wharf."):
+        if e.name.startswith(LAYERS):
             layers[e.name] = layers.get(e.name, 0.0) + e.device_time_total / 1e3
+            layers_host[e.name] = layers_host.get(e.name, 0.0) + e.cpu_time_total / 1e3
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.key.startswith("wharf.")]
+               if e.device_type == DeviceType.CUDA and not e.key.startswith(LAYERS)]
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    return dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
-                device_idle_share=1 - busy_ms / (wall * 1e3),
-                layer_kernel_ms=layers,
-                top_kernels_ms={e.key[:100]: e.self_device_time_total / 1e3
-                                for e in top})
+    out = dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
+               device_idle_share=1 - busy_ms / (wall * 1e3),
+               layer_kernel_ms=layers, layer_host_ms=layers_host,
+               top_kernels_ms={e.key[:100]: e.self_device_time_total / 1e3
+                               for e in top})
+    if kernel:
+        k_ms = sum(e.self_device_time_total for e in kernels if kernel in e.key) / 1e3
+        out[kernel] = dict(device_ms=k_ms, share_of_busy=k_ms / busy_ms)
+    return out
 
 
 # ---------------------------------------------------------------- phase 4
@@ -664,6 +847,64 @@ def phase_kernels_n2v(dev, kept):
     return rows
 
 
+def sgns_edge_cases(dev):
+    """Rows with logits of exactly ±100 and all-zero rows (K = 5, D = 128),
+    and random rows at B = 1, B = 13, K = 1, D = 64 and D = 256, entries
+    N(0, 4/D) (rows of norm ~2, as in a maintained table; at unit entries
+    the f32 roundings of the plain version alone exceed atol 1e-6)."""
+    g = torch.Generator()
+    g.manual_seed(11)
+
+    def rnd(b, k, d):
+        return [torch.randn(s, generator=g) * (2 / d ** 0.5)
+                for s in ((b, d), (b, d), (b, k, d))]
+    u, vp, vn = (torch.zeros(s) for s in ((6, 128), (6, 128), (6, 5, 128)))
+    u[:4, 0] = 10.0
+    vp[0, 0], vn[0, :, 0] = 10.0, -10.0                  # pos +100, negs -100
+    vp[1, 0], vn[1, :, 0] = -10.0, 10.0                  # pos -100, negs +100
+    vp[2, 0], vn[2, :, 0] = 10.0, 10.0
+    vn[3, ::2, 0] = 10.0                                  # v+ zero, mixed negs
+    cases = {"logits_pm100_and_zero_rows": [u, vp, vn], "B=1": rnd(1, 5, 128),
+             "B=13": rnd(13, 5, 128), "K=1": rnd(4096, 1, 128),
+             "D=64": rnd(4096, 5, 64), "D=256": rnd(4096, 5, 256)}
+    return {k: [t.to(dev) for t in v] for k, v in cases.items()}
+
+
+def sgns_err(got, want, what: str) -> float:
+    """Hold kernel 7 to its plain version (loss rtol 1e-5; gradients rtol
+    1e-5 / atol 1e-6: the kernel sums its dot products by warp shuffles,
+    torch in another order) -> the largest absolute difference."""
+    err = 0.0
+    for name, g, w in zip(("loss", "du", "dvp", "dvn"), got, want):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: non-finite {name}")
+        tol = (dict(rtol=SGNS_LOSS_RTOL, atol=0.0) if name == "loss"
+               else SGNS_GRAD_TOL)
+        torch.testing.assert_close(g, w, msg=f"{what}: kernel != plain in {name}",
+                                   **tol)
+        err = max(err, float((g - w).abs().max()))
+    return err
+
+
+def phase_kernels_sgns(dev, kept):
+    """Kernel 7 against its plain version on the operands the maintainer
+    formed in its last timed batch (phase 3b), plus edge cases."""
+    u, vp, vn = kept
+    b, k, d = vn.shape
+    err = sgns_err(sgns.sgns_cuda(u, vp, vn), sgns.sgns_plain(u, vp, vn), "sgns")
+    edge = {name: sgns_err(sgns.sgns_cuda(*case), sgns.sgns_plain(*case), f"sgns {name}")
+            for name, case in sgns_edge_cases(dev).items()}
+    rows = []
+    # bytes: u, v+ and K rows v- read once, du, dv+ and K rows dv- and the
+    # loss written once (f32); operations a row: the K + 1 dot products,
+    # du, dv+ and dv- ((5K + 4) D)
+    kernel_row(rows, "sgns_step", err, event_ms(lambda: sgns.sgns_cuda(u, vp, vn), 20),
+               event_ms(lambda: sgns.sgns_plain(u, vp, vn), 3),
+               8.0 * (k + 2) * d * b + 4.0 * b, (5.0 * k + 4) * d * b, [b, k, d],
+               edge_case_max_abs_err=edge)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -673,16 +914,24 @@ def main() -> int:
     _, t_build = sync_time(_build.lib)
     log("build", seconds=t_build, library=_build.library_path().name)
     phase_small_e2e(dev)
+    phase_small_maintainer(dev)
     full, tensors = phase_full(dev)
     kernels = phase_kernels(dev, tensors)
+    host_state = tensors.pop("host_state")
     del tensors
-    n2v, kept = phase_full_n2v(dev)
-    kernels += phase_kernels_n2v(dev, kept)
+    maint, kept = phase_maintainer(dev, host_state)
+    del host_state
+    sgns_rows = phase_kernels_sgns(dev, kept)
     del kept
-    # each kernel's launches on the main paths: order 1 (phase 3) and the
-    # order-2 corpus, unfused and fused batches (phase 4)
+    n2v, kept = phase_full_n2v(dev)
+    kernels += phase_kernels_n2v(dev, kept) + sgns_rows
+    del kept
+    # each kernel's launches on the main paths: order 1 (phase 3), the
+    # maintainer (phase 3b), and the order-2 corpus, unfused and fused
+    # batches (phase 4)
     for r in kernels:
         by_path = {"order1": full["launches"][r["name"]],
+                   "maintainer": maint["launches"][r["name"]],
                    **{p: n2v["launches"][p][r["name"]] for p in n2v["launches"]}}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path

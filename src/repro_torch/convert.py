@@ -5,10 +5,15 @@ over to the port's. `state_from_numpy` takes the fields of the reference's `Stre
 `WalkStore`, `PendingBlocks` and `EngineState` as numpy arrays (in the
 reference's dtypes: uint64 codes, uint32 columns) in a flat dict keyed
 `"graph.codes"`, `"store.owner"`, ... (see FIELDS), and builds the port's
-EngineState; `state_to_numpy` is its inverse. No JAX is imported: the
-caller turns its arrays into numpy first.
+EngineState; `state_to_numpy` is its inverse. `maintainer_config_from`,
+`params_from_numpy`/`params_to_numpy` and `maintainer_state_from_numpy`
+do the same for the downstream maintainer (the SGNS tables and its
+optimizer counters). No JAX is imported: the caller turns its arrays into
+numpy first.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -25,6 +30,11 @@ from repro_torch.core.walkers import WalkModel
 MEGAKERNEL_NAMES = {"off": "off", "auto": "auto", "pallas": "cuda",
                     "interpret": "torch", "pallas-interpret": "torch",
                     "xla-ref": "ref"}
+
+# the reference's SGNS backends -> the port's
+SGNS_NAMES = {None: None, "auto": "auto", "pallas": "cuda",
+              "interpret": "torch", "pallas-interpret": "torch",
+              "xla-ref": "ref"}
 
 # field -> its representation: "u64" codes, "u32" columns, "i32" columns
 FIELDS = {
@@ -95,3 +105,40 @@ def state_to_numpy(state: EngineState) -> dict:
         val = getattr(src[obj], name) if obj else getattr(state, name)
         out[k] = bool(val) if k == "overflow" else int(val)
     return out
+
+
+def maintainer_config_from(cfg):
+    """A reference `MaintainerConfig` -> the port's, its walk config and
+    SGNS backend under the port's names."""
+    from repro_torch.downstream.maintainer import MaintainerConfig
+    kw = {f.name: getattr(cfg, f.name)
+          for f in dataclasses.fields(MaintainerConfig)}
+    kw["walk"] = config_from(cfg.walk)
+    kw["sgns_backend"] = SGNS_NAMES[cfg.sgns_backend]
+    return MaintainerConfig(**kw)
+
+
+def params_from_numpy(d: dict, device=None) -> dict:
+    """{"in", "out"} float32 numpy tables -> the port's SGNS params."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.array(d[k], dtype=np.float32)).to(dev)
+            for k in ("in", "out")}
+
+
+def params_to_numpy(params: dict) -> dict:
+    return {k: params[k].detach().cpu().numpy() for k in ("in", "out")}
+
+
+def maintainer_state_from_numpy(d: dict, device=None):
+    """The flat engine dict of `state_from_numpy` plus "params.in",
+    "params.out", "opt.step" and "opt.pairs" -> a MaintainerState."""
+    from repro_torch.downstream.maintainer import MaintainerState
+    dev = resolve_device(device)
+    params = params_from_numpy({"in": d["params.in"], "out": d["params.out"]},
+                               dev)
+    opt = {"step": torch.tensor(int(d["opt.step"]), dtype=torch.int32,
+                                device=dev),
+           "pairs": torch.tensor(int(d["opt.pairs"]), dtype=torch.int64,
+                                 device=dev)}
+    return MaintainerState(engine=state_from_numpy(d, dev), params=params,
+                           opt=opt)

@@ -199,18 +199,21 @@ class WalkEngine:
             self.merge()
         return self.state.last_affected
 
-    def run_stream(self, key, ins_src, ins_dst, del_src=None, del_dst=None):
+    def run_stream(self, key, ins_src, ins_dst, del_src=None, del_dst=None,
+                   return_masks: bool = False):
         """Consume a whole [n_batches, batch] edge stream; `key` is split
         into one key per batch, as the reference. Returns the per-batch
         affected counts (int32 [n_batches]); MAV overflow accumulates and
-        surfaces once via `mav_overflowed`."""
+        surfaces once via `mav_overflowed`. With `return_masks=True`
+        returns `(affected, aux)`, `aux` the stacked `UpdateAux` of the
+        steps ([n_batches, capacity] leaves)."""
         self.state, out = run_stream(
             self.state, jr.split(jr.as_key(key, self.store.device),
                                  len(ins_src)),
             ins_src, ins_dst, del_src, del_dst, cfg=self.cfg,
             capacity=self.rewalk_capacity, mav_capacity=self._mav_capacity(),
             max_pending=self.max_pending, merge_policy=self.merge_policy,
-            merge_impl=self.merge_impl)
+            merge_impl=self.merge_impl, with_masks=return_masks)
         return out
 
     def _mav_capacity(self) -> int:
@@ -454,10 +457,12 @@ def stream_step_aux(state: EngineState, key, ins_src, ins_dst, del_src,
 def run_stream(state: EngineState, keys, ins_src, ins_dst, del_src, del_dst,
                *, cfg: WalkConfig, capacity: int, mav_capacity: int,
                max_pending: int, merge_policy: str = "on-demand",
-               merge_impl: str = "interleave"):
+               merge_impl: str = "interleave", with_masks: bool = False):
     """A whole [n_batches, batch] stream through `stream_step_aux`, one
     host loop; `keys` [n_batches, 2]. Deletion streams may be None or
-    zero-width. Returns (state, affected int32 [n_batches])."""
+    zero-width. Returns (state, affected int32 [n_batches]), or with
+    `with_masks` (state, (affected, UpdateAux of [n_batches, capacity]
+    leaves))."""
     dev = state.store.device
     ins_src, ins_dst = as_ids(ins_src, dev), as_ids(ins_dst, dev)
     n_batches = ins_src.shape[0]
@@ -466,14 +471,19 @@ def run_stream(state: EngineState, keys, ins_src, ins_dst, del_src, del_dst,
     else:
         del_src, del_dst = as_ids(del_src, dev), as_ids(del_dst, dev)
     keys = jr.as_key(keys, dev)
-    affected = []
+    affected, auxs = [], []
     for i in range(n_batches):
-        state, _ = stream_step_aux(state, keys[i], ins_src[i], ins_dst[i],
-                                   del_src[i], del_dst[i], cfg, capacity,
-                                   mav_capacity, max_pending, merge_policy,
-                                   merge_impl)
+        state, aux = stream_step_aux(state, keys[i], ins_src[i], ins_dst[i],
+                                     del_src[i], del_dst[i], cfg, capacity,
+                                     mav_capacity, max_pending, merge_policy,
+                                     merge_impl)
         affected.append(state.last_affected)
-    return state, torch.stack(affected)
+        if with_masks:
+            auxs.append(aux)
+    affected = torch.stack(affected)
+    if not with_masks:
+        return state, affected
+    return state, (affected, UpdateAux(*map(torch.stack, zip(*auxs))))
 
 
 def merge_interleave(base: WalkStore, acc_owner, acc_code, acc_epoch,

@@ -39,6 +39,8 @@ SIGNATURES = {
                                 _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _P, _P, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_int, _F, _F, _P, _P, _LL, _P],
+    "repro_sgns_step": [_P, _P, _P, _P, _P, _P, _P, _LL, ctypes.c_int,
+                        ctypes.c_int, _P],
 }
 
 _lib = None

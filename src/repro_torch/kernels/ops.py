@@ -14,10 +14,12 @@ from repro_torch.kernels import delta as _delta
 from repro_torch.kernels import intersect as _intersect
 from repro_torch.kernels import megakernel as _mk
 from repro_torch.kernels import range_search as _rs
+from repro_torch.kernels import sgns as _sgns
 from repro_torch.kernels import szudzik as _szudzik
 
 KERNELS = ("szudzik_pair", "szudzik_unpair", "delta_decode",
-           "find_next_packed", "intersect_next", "fused_rewalk_step")
+           "find_next_packed", "intersect_next", "fused_rewalk_step",
+           "sgns_step")
 launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -104,6 +106,16 @@ def fused_rewalk_step(store, step):
         return _mk.fused_step_plain(store, step)
     out = _mk.fused_step_cuda(store, step)
     launches["fused_rewalk_step"] += 1
+    return out
+
+
+def sgns_step(u: torch.Tensor, v_pos: torch.Tensor, v_neg: torch.Tensor):
+    """The fused SGNS step: u, v_pos f32 [B, D], v_neg f32 [B, K, D] ->
+    (loss [B], du [B, D], dvp [B, D], dvn [B, K, D])."""
+    if not _on_card(u, v_pos, v_neg):
+        return _sgns.sgns_plain(u, v_pos, v_neg)
+    out = _sgns.sgns_cuda(u, v_pos, v_neg)
+    launches["sgns_step"] += 1
     return out
 
 

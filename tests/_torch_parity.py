@@ -146,3 +146,84 @@ def check_order2_stream(sampler, policy, merge_impl):
                                   np.asarray(eng.walk_matrix()).astype(np.int64))
     assert_state_dicts_equal(jax_state_to_numpy(eng.state),
                              convert.state_to_numpy(teng.state))
+
+
+# ------------------------------------------------- the downstream maintainer
+
+# the reference's own tolerance for a scatter-added SGNS step
+# (tests/test_sgns.py::test_masked_step_equals_grad_of_masked_loss)
+TABLE_TOL = dict(rtol=2e-4, atol=1e-5)
+
+
+def make_jax_maintainer(seed=0, n_w=2, length=8, policy="on-demand",
+                        max_pending=3, dim=16, window=2, n_negative=3, **kw):
+    """tests/test_downstream.py's `make_maintainer`."""
+    import jax
+
+    from repro.core import StreamingGraph, WalkConfig, generate_corpus
+    from repro.data.streams import rmat_edges
+    from repro.downstream import EmbeddingMaintainer, MaintainerConfig
+    src, dst = rmat_edges(jax.random.PRNGKey(seed), 300, LOG2_N)
+    g = StreamingGraph.from_edges(src, dst, N, 4096)
+    wcfg = WalkConfig(n_walks_per_vertex=n_w, length=length)
+    store = generate_corpus(jax.random.PRNGKey(seed + 1), g, wcfg)
+    cfg = MaintainerConfig(walk=wcfg, n_vertices=N, dim=dim, window=window,
+                           n_negative=n_negative, rewalk_capacity=N * n_w,
+                           max_pending=max_pending, merge_policy=policy, **kw)
+    return EmbeddingMaintainer(graph=g, store=store, cfg=cfg,
+                               key=jax.random.PRNGKey(seed + 2))
+
+
+def jax_maintainer_dict(mt) -> dict:
+    d = jax_state_to_numpy(mt.state.engine)
+    d["params.in"] = np.asarray(mt.state.params["in"])
+    d["params.out"] = np.asarray(mt.state.params["out"])
+    d["opt.step"] = int(mt.state.opt["step"])
+    d["opt.pairs"] = int(mt.state.opt["pairs"])
+    return d
+
+
+def port_maintainer_like(jmt):
+    """The port's maintainer on the CPU, in the JAX maintainer's state."""
+    from repro_torch import downstream as tds
+    from repro_torch import random as jr
+    st = convert.maintainer_state_from_numpy(jax_maintainer_dict(jmt), "cpu")
+    cfg = convert.maintainer_config_from(jmt.cfg)
+    tmt = tds.EmbeddingMaintainer(graph=st.engine.graph, store=st.engine.store,
+                                  cfg=cfg, key=jr.PRNGKey(0, "cpu"))
+    tmt.load_state(st)
+    return tmt
+
+
+def assert_maintainers_match(jmt, tmt, jm, tm):
+    """Engine bit for bit, pair and affected counts equal, loss and tables
+    within the stated tolerances."""
+    assert_state_dicts_equal(jax_state_to_numpy(jmt.state.engine),
+                             convert.state_to_numpy(tmt.state.engine))
+    np.testing.assert_array_equal(tm.n_pairs.numpy(), np.asarray(jm.n_pairs))
+    np.testing.assert_array_equal(tm.n_affected.numpy(),
+                                  np.asarray(jm.n_affected))
+    assert tm.n_pairs.dtype == torch.int32
+    np.testing.assert_allclose(tm.loss_sum.numpy(), np.asarray(jm.loss_sum),
+                               rtol=1e-5)
+    tables = convert.params_to_numpy(tmt.params)
+    for k in ("in", "out"):
+        np.testing.assert_allclose(tables[k], np.asarray(jmt.params[k]),
+                                   err_msg=k, **TABLE_TOL)
+    assert tmt.pairs_trained == jmt.pairs_trained
+    assert int(tmt.state.opt["step"]) == int(jmt.state.opt["step"])
+    assert tmt.epoch_counter == jmt.epoch_counter
+
+
+def run_both_maintainers(jmt, n_batches=5, seed=7, key=42, train_key=None):
+    """The JAX maintainer and its port twin through the same stream and
+    keys -> (port maintainer, JAX metrics, port metrics, stream)."""
+    import jax
+    tmt = port_maintainer_like(jmt)
+    stream = make_stream(seed=seed, n_batches=n_batches)
+    k = jax.random.PRNGKey(key)
+    tk = None if train_key is None else jax.random.PRNGKey(train_key)
+    jm = jmt.run_stream(k, *stream, train_key=tk)
+    tm = tmt.run_stream(np.asarray(k), *stream,
+                        train_key=None if tk is None else np.asarray(tk))
+    return tmt, jm, tm, stream

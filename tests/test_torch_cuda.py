@@ -1,6 +1,8 @@
-"""The port's CUDA kernels against their plain PyTorch versions, bit for
-bit, on the card; and the engine on the card against the engine on the CPU,
-order 1 and order 2 (both samplers, unfused and fused).
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card (bit for bit; kernel 7, the f32 SGNS step, within stated
+tolerances); and the engine on the card against the engine on the CPU,
+order 1 and order 2 (both samplers, unfused and fused), and the
+downstream maintainer.
 
 Run on a machine with an NVIDIA sm_90a card:  pytest -m cuda tests/test_torch_*.py
 Without a card every test here skips (decided inside the fixture). This
@@ -17,7 +19,8 @@ from repro_torch.core import StreamingGraph, WalkConfig, generate_corpus
 from repro_torch.core import pairing
 from repro_torch.core.packed_store import encode_codes
 from repro_torch.core.update import WalkEngine
-from repro_torch.kernels import delta, intersect, megakernel, ops, range_search, szudzik
+from repro_torch.kernels import (delta, intersect, megakernel, ops, range_search, sgns,
+                                 szudzik)
 
 pytestmark = pytest.mark.cuda
 
@@ -268,3 +271,108 @@ def test_fused_step_kernel_matches_plain(dev, monkeypatch):
         got = megakernel.fused_step_cuda(store, step)
         want = megakernel.fused_step_plain(store, step)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# -------------------------------------- kernel 7 (SGNS) and the maintainer
+
+SGNS_LOSS_TOL = dict(rtol=1e-5, atol=0)
+SGNS_GRAD_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def sgns_cases():
+    """Random rows at the slice's shape and at odd ones (B = 1, 13; K = 1,
+    16; D = 64, 100, 256, 7), rows with logits of exactly ±100, all-zero
+    rows. Random entries are N(0, 4/D), rows of norm ~2 as in a maintained
+    table: at unit entries (logits ~±40) f32 rounding of the logits alone
+    moves du by more than atol 1e-6, whatever the order of the sums."""
+    rng = np.random.default_rng(8)
+
+    def rnd(b, k, d):
+        return [torch.from_numpy((rng.standard_normal(s) * 2 / np.sqrt(d))
+                                 .astype(np.float32))
+                for s in ((b, d), (b, d), (b, k, d))]
+    cases = [rnd(b, k, d) for b, k, d in ((4096, 5, 128), (1, 5, 128), (13, 5, 128),
+                                          (64, 1, 128), (33, 5, 64), (17, 3, 256),
+                                          (9, 16, 100), (5, 2, 7))]
+    u, vp, vn = (torch.zeros(s) for s in ((6, 128), (6, 128), (6, 5, 128)))
+    u[:4, 0] = 10.0
+    vp[0, 0], vn[0, :, 0] = 10.0, -10.0                  # pos +100, negs -100
+    vp[1, 0], vn[1, :, 0] = -10.0, 10.0                  # pos -100, negs +100
+    vp[2, 0], vn[2, :, 0] = 10.0, 10.0
+    vn[3, ::2, 0] = 10.0                                  # v+ zero, mixed negs
+    return cases + [[u, vp, vn]]
+
+
+def assert_sgns_close(got, want):
+    for name, g, w in zip(("loss", "du", "dvp", "dvn"), got, want):
+        tol = SGNS_LOSS_TOL if name == "loss" else SGNS_GRAD_TOL
+        torch.testing.assert_close(g.cpu(), w.cpu(), msg=name, **tol)
+        assert bool(torch.isfinite(g).all()), name
+
+
+def test_sgns_kernel_matches_plain(dev):
+    for case in sgns_cases():
+        args = [t.to(dev) for t in case]
+        got = sgns.sgns_cuda(*args)
+        assert_sgns_close(got, sgns.sgns_plain(*args))
+        assert_sgns_close(got, sgns.sgns_plain(*case))     # the CPU's plain version
+    # a view whose rows are not 16-byte aligned takes the scalar loads
+    u, vp, vn = [t.to(dev) for t in sgns_cases()[0]]
+    off = [t.reshape(-1)[1:1 + t.numel() - t[0].numel()].reshape(
+        t.shape[0] - 1, *t.shape[1:]) for t in (u, vp, vn)]
+    assert_sgns_close(sgns.sgns_cuda(*off), sgns.sgns_plain(*off))
+
+
+def test_sgns_kernel_states_its_limits(dev):
+    u = torch.zeros((4, 128), device=dev)
+    with pytest.raises(ValueError, match="K <= 16"):
+        sgns.sgns_cuda(u, u, torch.zeros((4, 17, 128), device=dev))
+    with pytest.raises(ValueError, match="B >= 1"):
+        sgns.sgns_cuda(u[:0], u[:0], torch.zeros((0, 5, 128), device=dev))
+    with pytest.raises(TypeError):
+        sgns.sgns_cuda(u.double(), u, torch.zeros((4, 5, 128), device=dev))
+    before = ops.launches["sgns_step"]
+    sgns.sgns_apply(u, u, torch.zeros((4, 5, 128), device=dev))
+    assert ops.launches["sgns_step"] == before + 1
+
+
+@pytest.mark.parametrize("max_pairs", [0, 1000])
+def test_maintainer_on_card_equals_cpu(dev, max_pairs):
+    """The same maintainer and stream on the card (kernels) and on the CPU
+    (plain versions), from the same tables: the engine bit for bit, the
+    pair and affected counts equal, the loss and tables within the
+    reference's tolerance (the card's scatter-add uses atomics)."""
+    from repro_torch.downstream import EmbeddingMaintainer, MaintainerConfig
+    rng = np.random.default_rng(9)
+    n = 256
+    src, dst = rng.integers(0, n, size=(2, 3000))
+    ins = rng.integers(0, n, size=(2, 4, 40))
+    dels = rng.integers(0, n, size=(2, 4, 10))
+    wcfg = WalkConfig(n_walks_per_vertex=3, length=12)
+    # training every live pair puts ~250 pairs a batch on each input row
+    # here, where lr 0.01 does not converge
+    lr = 0.01 if max_pairs else 0.001
+    out = []
+    ops.reset_launches()
+    for d in (torch.device("cpu"), dev):
+        g = StreamingGraph.from_edges(src, dst, n, 1 << 14, device=d)
+        cfg = MaintainerConfig(walk=wcfg, n_vertices=n, dim=128, window=5,
+                               n_negative=5, rewalk_capacity=n * 3, max_pending=3,
+                               max_pairs=max_pairs, lr=lr)
+        mt = EmbeddingMaintainer(graph=g, store=generate_corpus(jr.PRNGKey(1, d), g, wcfg),
+                                 cfg=cfg, key=jr.PRNGKey(3, d))
+        if d.type == "cuda":   # the CPU's tables: the draws' log1p differs by ulps
+            mt.load_state(mt.state._replace(params={k: v.to(d) for k, v in out[0][1].items()}))
+        init = {k: v.clone() for k, v in mt.params.items()}
+        m = mt.run_stream(jr.PRNGKey(2, d), ins[0], ins[1], dels[0], dels[1],
+                          train_key=jr.PRNGKey(4, d))
+        out.append((state_to_numpy(mt.state.engine), init, m, mt.params))
+    (s_cpu, _, m_cpu, p_cpu), (s_dev, _, m_dev, p_dev) = out
+    for k in s_cpu:
+        np.testing.assert_array_equal(s_cpu[k], s_dev[k], err_msg=k)
+    assert torch.equal(m_cpu.n_pairs, m_dev.n_pairs.cpu())
+    assert torch.equal(m_cpu.n_affected, m_dev.n_affected.cpu())
+    torch.testing.assert_close(m_dev.loss_sum.cpu(), m_cpu.loss_sum, rtol=1e-5, atol=0)
+    for k in ("in", "out"):
+        torch.testing.assert_close(p_dev[k].cpu(), p_cpu[k], rtol=2e-4, atol=1e-5)
+    assert ops.launches["sgns_step"] == 4

@@ -43,17 +43,22 @@ def test_every_module_imports_without_a_card():
     assert _build.library_path().name.startswith("librepro_kernels_")
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "szudzik.cu", "delta.cu", "range_search.cu", "intersect.cu",
-        "megakernel.cu"}
+        "megakernel.cu", "sgns.cu"}
     assert set(_build.SIGNATURES) == {
         "repro_szudzik_pair", "repro_szudzik_unpair", "repro_delta_decode",
         "repro_find_next_packed", "repro_intersect_next",
-        "repro_fused_rewalk_step"}
+        "repro_fused_rewalk_step", "repro_sgns_step"}
+    from repro_torch.kernels import ops
+    assert set(ops.KERNELS) == {n.removeprefix("repro_") for n in _build.SIGNATURES}
 
 
 @pytest.mark.parametrize("module", ["repro_torch.kernels.ops",
                                     "repro_torch.kernels.range_search",
                                     "repro_torch.kernels.megakernel",
-                                    "repro_torch.core.overlay"])
+                                    "repro_torch.kernels.sgns",
+                                    "repro_torch.core.overlay",
+                                    "repro_torch.models.embeddings",
+                                    "repro_torch.downstream"])
 def test_each_module_imports_first_in_a_fresh_process(module):
     """The core and the kernel wrappers import each other; any one of them
     imported first must still work."""
@@ -68,12 +73,15 @@ def test_each_module_imports_first_in_a_fresh_process(module):
 def test_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
+    from repro_torch import convert
     from repro_torch import random as jr
     from repro_torch.core import StreamingGraph
     with pytest.raises(RuntimeError, match="no CUDA device"):
         StreamingGraph.empty(8, 16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         jr.PRNGKey(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.params_from_numpy({"in": [[0.0]], "out": [[0.0]]})
 
 
 def test_kernel_wrappers_never_fall_back():

@@ -95,3 +95,46 @@ def test_per_lane_keys_match_vmap():
     want = jax.vmap(lambda k: jax.random.randint(k, (5,), 0, jnp.arange(1, 6)))(ks)
     got = jr.randint(jr.as_key(np.asarray(ks), "cpu"), (5,), 0, torch.arange(1, 6))
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 1000), (0, 2**18), (-5, 2**31 - 1),
+                                   (3, 3), (7, 2), (0, 2**40),
+                                   (-2**31, 2**31 - 1), (-2**31, 2**40)])
+def test_randint_int32_matches_jax(lo, hi):
+    """The 32-bit draw (the maintainer's negatives) consumes other bits
+    than the int64 one; bit for bit, over int32 limits and a maxval above
+    the int32 range (the last case: a span of 2^32, which wraps to 0)."""
+    for seed in range(0, 60, 3):
+        kj = jax.random.PRNGKey(seed)
+        want = np.asarray(jax.random.randint(kj, (4, 33), lo, hi, dtype=jnp.int32))
+        got = jr.randint(jr.PRNGKey(seed, device="cpu"), (4, 33), lo, hi,
+                         dtype=torch.int32)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(want, got.numpy())
+    ks = jax.random.split(jax.random.PRNGKey(1), 3)
+    want = jax.vmap(lambda k: jax.random.randint(k, (5,), lo, hi, dtype=jnp.int32))(ks)
+    got = jr.randint(jr.as_key(np.asarray(ks), "cpu"), (5,), lo, hi, dtype=torch.int32)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+def test_normal_within_four_ulp_of_jax():
+    """float32 `normal`: XLA's erf_inv polynomial in its order; the log1p
+    inside it is torch's, not XLA's, so a draw may differ by a few ulp.
+    Held to 4 ulp over 2^20 draws."""
+    worst = 0
+    for seed in range(16):
+        kj = jax.random.PRNGKey(seed)
+        want = np.asarray(jax.random.normal(kj, (1 << 16,), jnp.float32))
+        got = jr.normal(jr.PRNGKey(seed, device="cpu"), (1 << 16,)).numpy()
+        assert got.dtype == np.float32 and np.isfinite(got).all()
+        ulps = np.abs(got.view(np.int32).astype(np.int64)
+                      - want.view(np.int32).astype(np.int64))
+        worst = max(worst, int(ulps.max()))
+    assert worst <= 4, worst
+    kj = jax.random.PRNGKey(3)
+    want = np.asarray(jax.random.normal(kj, (3, 7), jnp.float32))
+    got = jr.normal(jr.PRNGKey(3, device="cpu"), (3, 7)).numpy()
+    assert got.shape == (3, 7)
+    np.testing.assert_allclose(got, want, rtol=4 * 2**-23, atol=0)
+    with pytest.raises(TypeError):
+        jr.normal(jr.PRNGKey(3, device="cpu"), (2,), torch.float64)
