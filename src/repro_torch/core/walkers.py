@@ -13,11 +13,12 @@ with two samplers, chosen by `WalkModel.sampler`:
     alpha / alpha_max; a fixed number of trials, first acceptance wins,
     the last proposal otherwise (approximate, as in the reference).
   * "factorized": exact. The three groups are sampled by aggregate mass,
-    then a member uniformly (kernels/intersect.py, kernel 5 on the card).
-    Windows are `dmax` wide: lanes where deg(v) or deg(prev) exceed dmax
-    take the rejection sampler with per-lane keys fold_in(key, lane), so a
-    lane's draws depend on (key, lane) alone and the overflowed lanes are
-    compacted (`rejection_fallback`).
+    then a member uniformly (kernels/intersect.py, kernel 5 on the card,
+    which reads the CSR segments of v and prev itself). Windows are `dmax`
+    wide: lanes where deg(v) or deg(prev) exceed dmax take the rejection
+    sampler with per-lane keys fold_in(key, lane), so a lane's draws
+    depend on (key, lane) alone and the overflowed lanes are compacted
+    (`rejection_fallback`).
 
 The reference runs its trials in a `lax.scan`; every trial's draws come
 from keys fixed before the first trial, so the port draws all trials at
@@ -130,31 +131,21 @@ def rejection_fallback(key, graph, v, prev, overflow, nxt, p, q,
 def _neighbor_window(graph, v, dmax: int):
     """Sentinel-padded neighbor windows: (int64 [B, dmax], deg int64 [B]),
     the first min(deg, dmax) CSR neighbors of each vertex (sorted)."""
-    v = v.to(torch.int64)
-    start = graph.offsets[v].to(torch.int64)
-    deg = graph.offsets[v + 1].to(torch.int64) - start
-    col = torch.arange(dmax, device=v.device)
-    idx = (start[:, None] + col[None]).clamp_(0, graph.codes.shape[0] - 1)
-    nbrs = graph.codes[idx].bitwise_and_(0xFFFFFFFF)    # the low word: dst
-    del idx
-    nbrs.masked_fill_(col[None] >= deg.clamp(max=dmax)[:, None], intersect.SENT)
-    return nbrs, deg
+    return intersect.neighbor_window(graph.codes, graph.offsets, v, dmax)
 
 
 def _node2vec_factorized_step(key, graph, v, prev, p, q, n_trials: int,
                               dmax: int, backend=None):
     """The exact order-2 step. The two uniforms per lane come from one half
     of split(key), the rejection fallback takes the other, so the selection
-    is the same on every backend and whether or not a lane overflowed."""
+    is the same on every backend and whether or not a lane overflowed. On
+    the card the kernel reads the CSR segments of v and prev; elsewhere
+    their windows are built (`intersect.factorized_next_csr`)."""
     k_u, k_fb = jr.split(key)
     u = jr.uniform(k_u, (v.shape[0], 2), torch.float32)
-    nbrs_v, deg_v = _neighbor_window(graph, v, dmax)
-    nbrs_p, deg_p = _neighbor_window(graph, prev, dmax)
-    nxt, found = intersect.factorized_next(nbrs_v, nbrs_p, prev, u[:, 0],
-                                           u[:, 1], p, q, backend=backend)
-    del nbrs_v, nbrs_p
+    nxt, found, overflow = intersect.factorized_next_csr(
+        graph.codes, graph.offsets, v, prev, u, dmax, p, q, backend=backend)
     nxt = torch.where(found, nxt, v)   # isolated vertices stay in place
-    overflow = (deg_v > dmax) | (deg_p > dmax)
     return rejection_fallback(k_fb, graph, v, prev, overflow, nxt, p, q,
                               n_trials)
 

@@ -35,10 +35,12 @@ SIGNATURES = {
                                ctypes.c_int, _P],
     "repro_intersect_next": [_P, _P, _P, _P, _P, _F, _F, _P, _P, _LL,
                              ctypes.c_int, _P],
+    "repro_intersect_csr": [_P, _P, _P, _P, _P, ctypes.c_int, _F, _F, _P, _P,
+                            _P, _LL, _P],
     "repro_fused_rewalk_step": [_P, _P, _P, _P, _P, _LL, ctypes.c_int,
                                 _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _P, _P, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_int, _F, _F, _P, _P, _LL, _P],
+                                ctypes.c_int, _F, _F, _P, _P, _P, _LL, _P],
     "repro_sgns_step": [_P, _P, _P, _P, _P, _P, _P, _LL, ctypes.c_int,
                         ctypes.c_int, _P],
 }

@@ -1,5 +1,5 @@
 """Kernel 5: the exact factorized node2vec step (CUDA, `csrc/intersect.cu`),
-its plain PyTorch version, and the straight-line oracle.
+its plain PyTorch versions, and the straight-line oracle.
 
 Port of `repro/kernels/intersect.py`. The node2vec bias alpha(prev, x)
 over the neighbors x of the current vertex v takes three values, so the
@@ -12,21 +12,31 @@ step is sampled exactly by groups:
 The group is picked by aggregate mass (count * weight, f32, in a fixed
 order) with one uniform, then a member uniformly by rank with another.
 
-Inputs are neighbor WINDOWS, nbrs_v / nbrs_p int64 [B, D]: the first
-min(deg, D) CSR neighbors of v and of prev (sorted), padded with
-SENT = 0xFFFFFFFF. Windows are int64 values below 2^32, so SENT sorts
-last and each row stays sorted, the contract `member_sorted` needs.
+Two forms of the inputs:
+  * neighbor WINDOWS (`factorized_next`, the reference's API), nbrs_v /
+    nbrs_p int64 [B, D]: the first min(deg, D) CSR neighbors of v and of
+    prev (sorted), padded with SENT = 0xFFFFFFFF (`neighbor_window`).
+    Windows are int64 values below 2^32, so SENT sorts last and each row
+    stays sorted, the contract `member_sorted` needs.
+  * the graph's CSR (`factorized_next_csr`, the samplers' entry): codes
+    int64 [E] (biased edge codes; the dst is the low word), offsets int32
+    [N+1], v and prev int64 [B], and the window width dmax. It also
+    returns `overflow` = deg(v) > dmax | deg(prev) > dmax. On the card the
+    kernel reads the two segments itself and no window is built; its plain
+    version is `neighbor_window` twice, then `factorized_plain`.
 
-Backends (`factorized_next`):
-    "cuda"  — the CUDA kernel through `ops.intersect_next` (the card's
-              default); rows of any width are padded to a multiple of 128
+Backends (both forms):
+    "cuda"  — the CUDA kernel through `ops.intersect_next` /
+              `ops.intersect_csr` (the card's default); windows of any
+              width are padded to a multiple of 128, any dmax <= 1024 is
+              taken
     "torch" — `_choose_math` over the whole batch with the binary-search
               membership (the CPU default)
     "ref"   — `_factorized_ref`, written straight-line (all-pairs
               membership, argmax rank-select): the oracle
 All three take the same two uniforms per lane and agree bit for bit. An
-explicit "cuda" request keeps the reference's tiling guard (D % 128 == 0)
-and raises for tensors off the card.
+explicit "cuda" request keeps the reference's tiling guard (D % 128 == 0,
+dmax % 128 == 0) and raises for tensors off the card.
 """
 from __future__ import annotations
 
@@ -38,6 +48,7 @@ import torch
 from repro_torch.kernels._launch import call, require
 
 LANES = 128          # the kernel's window alignment (the reference's tile)
+MAX_D = 1024         # the kernel's widest window (32 entries a lane)
 SENT = 0xFFFFFFFF    # window padding: never a vertex id
 
 BACKENDS = ("cuda", "torch", "ref")
@@ -84,6 +95,21 @@ def inverse_weights(p: float, q: float) -> tuple:
 
 
 # ------------------------------------------------------------- plain math
+
+
+def neighbor_window(codes, offsets, v, dmax: int):
+    """Sentinel-padded neighbor windows from the CSR (biased edge codes
+    `codes`, int32 `offsets`): (int64 [B, dmax], deg int64 [B]), the first
+    min(deg, dmax) neighbors of each vertex (sorted)."""
+    v = v.to(torch.int64)
+    start = offsets[v].to(torch.int64)
+    deg = offsets[v + 1].to(torch.int64) - start
+    col = torch.arange(dmax, device=v.device)
+    idx = (start[:, None] + col[None]).clamp_(0, codes.shape[0] - 1)
+    nbrs = codes[idx].bitwise_and_(0xFFFFFFFF)    # the low word: dst
+    del idx
+    nbrs.masked_fill_(col[None] >= deg.clamp(max=dmax)[:, None], SENT)
+    return nbrs, deg
 
 
 def _f32(x: float, device) -> torch.Tensor:
@@ -150,6 +176,23 @@ def factorized_plain(nbrs_v, nbrs_p, prev, u_group, u_rank, inv_p, inv_q):
                         inv_p, inv_q)
 
 
+def _factorized_csr(choose, codes, offsets, v, prev, u, dmax, inv_p, inv_q):
+    """`choose` (factorized_plain or _factorized_ref) on the windows of v
+    and prev -> (nxt, found, overflow)."""
+    nbrs_v, deg_v = neighbor_window(codes, offsets, v, dmax)
+    nbrs_p, deg_p = neighbor_window(codes, offsets, prev, dmax)
+    nxt, found = choose(nbrs_v, nbrs_p, prev, u[:, 0], u[:, 1], inv_p, inv_q)
+    return nxt, found, (deg_v > dmax) | (deg_p > dmax)
+
+
+def factorized_csr_plain(codes, offsets, v, prev, u, dmax: int, inv_p, inv_q):
+    """The plain version of the CSR kernel: the windows of v and prev, then
+    `factorized_plain` -> (nxt int64 [B], found bool [B], overflow bool
+    [B])."""
+    return _factorized_csr(factorized_plain, codes, offsets, v, prev, u, dmax,
+                           inv_p, inv_q)
+
+
 def _factorized_ref(nbrs_v, nbrs_p, prev, u_group, u_rank, inv_p, inv_q):
     """The oracle, straight-line and independent of the helpers above:
     all-pairs membership, argmax rank-select."""
@@ -203,6 +246,32 @@ def factorized_cuda(nbrs_v, nbrs_p, prev, u_group, u_rank, inv_p: float,
     return nxt, found
 
 
+def factorized_csr_cuda(codes, offsets, v, prev, u, dmax: int, inv_p: float,
+                        inv_q: float):
+    """Launch the CSR kernel: codes int64 [E], offsets int32 [N+1], v and
+    prev int64 [B], u f32 [B, 2], 1 <= dmax <= 1024 -> (nxt int64 [B],
+    found bool [B], overflow bool [B])."""
+    codes = require(codes, torch.int64, "intersect_csr codes")
+    offsets = require(offsets, torch.int32, "intersect_csr offsets")
+    v = require(v, torch.int64, "intersect_csr v")
+    prev = require(prev, torch.int64, "intersect_csr prev")
+    u = require(u, torch.float32, "intersect_csr u")
+    b = v.shape[0]
+    if (codes.dim() != 1 or offsets.dim() != 1 or v.shape != (b,)
+            or prev.shape != (b,) or u.shape != (b, 2)):
+        raise ValueError("intersect_csr: codes [E], offsets [N+1], v and prev "
+                         "[B], u [B, 2]")
+    if not 1 <= dmax <= MAX_D:
+        raise ValueError(f"intersect_csr: dmax must be in [1, {MAX_D}], got "
+                         f"{dmax}")
+    nxt = torch.empty((b,), dtype=torch.int64, device=v.device)
+    found = torch.empty((b,), dtype=torch.bool, device=v.device)
+    overflow = torch.empty((b,), dtype=torch.bool, device=v.device)
+    call("repro_intersect_csr", v.device, codes, offsets, v, prev, u, dmax,
+         inv_p, inv_q, nxt, found, overflow, b)
+    return nxt, found, overflow
+
+
 def pad_windows(nbrs_v, nbrs_p):
     """Pad windows to a multiple of LANES columns with SENT (never a member,
     never valid), which leaves every selection unchanged."""
@@ -238,4 +307,29 @@ def factorized_next(nbrs_v, nbrs_p, prev, u_group, u_rank, p: float,
         return factorized_plain(nbrs_v, nbrs_p, prev, u_group, u_rank,
                                 inv_p, inv_q)
     return _factorized_ref(nbrs_v, nbrs_p, prev, u_group, u_rank, inv_p,
+                           inv_q)
+
+
+def factorized_next_csr(codes, offsets, v, prev, u, dmax: int, p: float,
+                        q: float, backend: Optional[str] = None):
+    """The exact step from the graph's CSR: codes int64 [E], offsets int32
+    [N+1], v and prev int64 [B], u f32 [B, 2] (u_group, u_rank) -> (nxt
+    int64 [B], found bool [B], overflow bool [B]). "cuda" launches the
+    kernel, which reads the segments itself; the other backends build the
+    windows of v and prev (`neighbor_window`). An explicit "cuda" request
+    with dmax % 128 != 0 raises (the reference's tiling guard); the
+    automatic pick takes any dmax <= 1024."""
+    from repro_torch.kernels import ops
+    explicit = backend not in (None, "auto")
+    backend = resolve_backend(backend, v.device)
+    inv_p, inv_q = inverse_weights(p, q)
+    if backend == "cuda":
+        if explicit and dmax % LANES:
+            raise ValueError(
+                f"intersect backend 'cuda' requires dmax % {LANES} == 0, got "
+                f"dmax={dmax}; use backend='auto'")
+        return ops.intersect_csr(codes, offsets, v, prev, u, dmax, inv_p,
+                                 inv_q)
+    choose = factorized_plain if backend == "torch" else _factorized_ref
+    return _factorized_csr(choose, codes, offsets, v, prev, u, dmax, inv_p,
                            inv_q)

@@ -12,14 +12,18 @@ does, per lane,
         decode, unpair, hit = pos in [lo, hi) & f == ft & epoch ==
         slot_epoch[f], first hit wins (WalkStore.find_next's search and
         verification, given one live entry per slot in the base store);
-  (ii)  kernel 5's selection on the lane's windows (factorized mode), or
-        the sampler's draw computed outside (external mode);
+  (ii)  kernel 5's selection on the CSR segments of cur and prev
+        (factorized mode), or the sampler's draw computed outside
+        (external mode);
   (iii) `finalize_math`: pending precedence, stay in place when nothing is
         found, the terminal self-pointer;
   (iv)  the Szudzik pair of the written triplet.
 
-The pruned ranges, the pending lookup (for the prefix lanes, which alone
-read them) and the windows are formed outside the kernel. Exceptional lanes keep the unfused path's exactness at a cost
+The pruned ranges and the pending lookup (for the prefix lanes, which
+alone read them) are formed outside the kernel; in factorized mode the
+kernel reads the CSR segments of cur and prev itself and reports
+deg > dmax (`overflow`), so no neighbor window is built on the card.
+Exceptional lanes keep the unfused path's exactness at a cost
 proportional to their count: candidate ranges wider than K chunks (`over`)
 are fixed up by the reference scan `WalkStore._scan_ref`, and factorized
 lanes with deg > dmax by `walkers.rejection_fallback`. Draw discipline, as
@@ -127,15 +131,16 @@ class FusedStep(NamedTuple):
     is_term: bool            # p == l - 1
     window: int              # K candidate chunks
     u: Optional[torch.Tensor] = None        # f32 [B, 2] (factorized)
-    nbrs_v: Optional[torch.Tensor] = None   # int64 [B, D] (factorized)
-    nbrs_p: Optional[torch.Tensor] = None
+    codes: Optional[torch.Tensor] = None    # int64 [E] the graph's CSR
+    offsets: Optional[torch.Tensor] = None  # int32 [N+1] (factorized)
+    dmax: int = 0                           # window width (factorized)
     ext_nxt: Optional[torch.Tensor] = None  # int64 (external mode)
     inv_p: float = 1.0       # f32 weights (intersect.inverse_weights)
     inv_q: float = 1.0
 
     @property
     def factorized(self) -> bool:
-        return self.nbrs_v is not None
+        return self.codes is not None
 
 
 def findnext_hit_mask(pos, f, ep, lo, hi, ft, want):
@@ -184,9 +189,12 @@ def _findnext_plain(store, lo, hi, ft, want, k: int):
 
 def fused_step_plain(store, s: FusedStep):
     """The plain version of the kernel -> (nxt int64 [B], code biased int64
-    [B]). As the kernel, each lane computes only the stage it reads: the
-    FINDNEXT for prefix lanes pending does not answer, the selection for
-    emitting lanes (the reference computes both everywhere and selects)."""
+    [B], overflow bool [B]). As the kernel, each lane computes only the
+    stage it reads: the FINDNEXT for prefix lanes pending does not answer,
+    the selection for emitting lanes, whose windows alone are built (the
+    reference computes both everywhere and selects). `overflow` is deg >
+    dmax of an emitting lane's cur or prev in factorized mode, else
+    False."""
     fn_v = torch.zeros_like(s.cur)
     fn_found = torch.zeros_like(s.pend_hit)
     lanes = torch.nonzero(s.is_prefix & ~s.pend_hit).reshape(-1)
@@ -194,23 +202,25 @@ def fused_step_plain(store, s: FusedStep):
         fn_v[lanes], fn_found[lanes] = _findnext_plain(
             store, s.lo[lanes], s.hi[lanes], s.ft[lanes], s.want[lanes],
             s.window)
+    overflow = torch.zeros_like(s.is_prefix)
     if s.factorized:
         samp = s.cur.clone()
         lanes = torch.nonzero(~s.is_prefix).reshape(-1)
         if lanes.numel():
-            sn, sf = intersect.factorized_plain(
-                s.nbrs_v[lanes], s.nbrs_p[lanes], s.prev[lanes],
-                s.u[lanes, 0], s.u[lanes, 1], s.inv_p, s.inv_q)
+            sn, sf, so = intersect.factorized_csr_plain(
+                s.codes, s.offsets, s.cur[lanes], s.prev[lanes], s.u[lanes],
+                s.dmax, s.inv_p, s.inv_q)
             samp[lanes] = torch.where(sf, sn, s.cur[lanes])
+            overflow[lanes] = so
     else:
         samp = s.ext_nxt
     nxt, nxt_eff = finalize_math(fn_v, fn_found, s.pend_hit, s.pend_nxt, samp,
                                  s.cur, s.is_prefix, s.is_term)
-    return nxt, pairing.szudzik_pair(s.ft, nxt_eff)
+    return nxt, pairing.szudzik_pair(s.ft, nxt_eff), overflow
 
 
 def fused_step_cuda(store, s: FusedStep):
-    """Launch the kernel (one warp per lane) -> (nxt, code)."""
+    """Launch the kernel (one warp per lane) -> (nxt, code, overflow)."""
     i64, i32 = torch.int64, torch.int32
     cols = [require(t, i32, "fused_rewalk_step store")
             for t in (store.packed, store.widths, store.anchors_hi,
@@ -222,27 +232,26 @@ def fused_step_cuda(store, s: FusedStep):
     b = s.cur.shape[0]
     if any(t.shape != (b,) for t in lane):
         raise ValueError("fused_rewalk_step: per-lane operands must be [B]")
-    d = 0
-    u = nv = np_ = ext = 0
+    u = codes = offsets = ext = 0
     if s.factorized:
         u = require(s.u, torch.float32, "fused_rewalk_step u")
-        nv = require(s.nbrs_v, i64, "fused_rewalk_step nbrs_v")
-        np_ = require(s.nbrs_p, i64, "fused_rewalk_step nbrs_p")
-        d = nv.shape[1]
-        if (u.shape != (b, 2) or nv.shape != (b, d) or np_.shape != (b, d)
-                or d % intersect.LANES):
-            raise ValueError(f"fused_rewalk_step: u [B, 2] and windows [B, D] "
-                             f"with D % {intersect.LANES} == 0")
+        codes = require(s.codes, i64, "fused_rewalk_step codes")
+        offsets = require(s.offsets, i32, "fused_rewalk_step offsets")
+        if (u.shape != (b, 2) or codes.dim() != 1 or offsets.dim() != 1
+                or not 1 <= s.dmax <= intersect.MAX_D):
+            raise ValueError(f"fused_rewalk_step: u [B, 2], codes [E], offsets "
+                             f"[N+1] and 1 <= dmax <= {intersect.MAX_D}")
     else:
         ext = require(s.ext_nxt, i64, "fused_rewalk_step ext_nxt")
         if ext.shape != (b,):
             raise ValueError("fused_rewalk_step: ext_nxt must be [B]")
     nxt = torch.empty((b,), dtype=i64, device=s.cur.device)
     code = torch.empty((b,), dtype=i64, device=s.cur.device)
+    overflow = torch.empty((b,), dtype=torch.bool, device=s.cur.device)
     call("repro_fused_rewalk_step", s.cur.device, *cols, store.n_chunks,
-         s.window, *lane, u, nv, np_, ext, d, int(s.factorized),
-         int(s.is_term), s.inv_p, s.inv_q, nxt, code, b)
-    return nxt, code
+         s.window, *lane, u, codes, offsets, ext, s.dmax, int(s.factorized),
+         int(s.is_term), s.inv_p, s.inv_q, nxt, code, overflow, b)
+    return nxt, code, overflow
 
 
 # ------------------------------------------------------------- the scan
@@ -260,8 +269,7 @@ def fused_scan(key, graph, store, pending, walk_ids, lane_valid, p_min,
     from repro_torch.core.corpus import walk_start_vertex
     from repro_torch.core.overlay import Overlay
     from repro_torch.core.utils import seg_searchsorted
-    from repro_torch.core.walkers import (_neighbor_window, rejection_fallback,
-                                          sample_next)
+    from repro_torch.core.walkers import rejection_fallback, sample_next
     from repro_torch.kernels import ops
 
     dev = store.device
@@ -316,23 +324,19 @@ def fused_scan(key, graph, store, pending, walk_ids, lane_valid, p_min,
             c0 = lo // CHUNK
             over = (hi > lo) & ((torch.maximum(hi - 1, lo) // CHUNK - c0)
                                 >= k_chunks)
-            extra = {}
             if factorized:
                 k_u, k_fb = jr.split(kp)
                 u = jr.uniform(k_u, (capacity, 2), torch.float32)
-                nbrs_v, deg_v = _neighbor_window(graph, cur, model.dmax)
-                nbrs_p, deg_p = _neighbor_window(graph, prev, model.dmax)
-                overflow = (deg_v > model.dmax) | (deg_p > model.dmax)
-                extra = dict(u=u, nbrs_v=nbrs_v, nbrs_p=nbrs_p, inv_p=inv_p,
-                             inv_q=inv_q)
+                extra = dict(u=u, codes=graph.codes, offsets=graph.offsets,
+                             dmax=model.dmax, inv_p=inv_p, inv_q=inv_q)
             else:
                 extra = dict(ext_nxt=sample_next(kp, graph, cur, prev, model))
             step = FusedStep(lo, hi, f, want, cur, prev, pend_nxt, pend_hit,
                              is_prefix, is_term, k_chunks, **extra)
             if backend == "cuda":
-                nxt, code = ops.fused_rewalk_step(store, step)
+                nxt, code, overflow = ops.fused_rewalk_step(store, step)
             else:
-                nxt, code = fused_step_plain(store, step)
+                nxt, code, overflow = fused_step_plain(store, step)
             del step, extra
             # epilogue: the exceptional lanes, at a cost proportional to
             # their count
@@ -345,10 +349,9 @@ def fused_scan(key, graph, store, pending, walk_ids, lane_valid, p_min,
                     pend_hit[lanes], pend_nxt[lanes],
                     torch.where(o_found, o_out, cur[lanes]))
             if factorized:
-                ov_mask = overflow & ~is_prefix
-                nxt = rejection_fallback(k_fb, graph, cur, prev, ov_mask, nxt,
+                nxt = rejection_fallback(k_fb, graph, cur, prev, overflow, nxt,
                                          model.p, model.q, model.n_trials)
-                changed = changed | ov_mask
+                changed = changed | overflow
             lanes = torch.nonzero(changed).reshape(-1)
             if lanes.numel():
                 eff = cur[lanes] if is_term else nxt[lanes]

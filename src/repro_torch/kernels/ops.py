@@ -18,8 +18,8 @@ from repro_torch.kernels import sgns as _sgns
 from repro_torch.kernels import szudzik as _szudzik
 
 KERNELS = ("szudzik_pair", "szudzik_unpair", "delta_decode",
-           "find_next_packed", "intersect_next", "fused_rewalk_step",
-           "sgns_step")
+           "find_next_packed", "intersect_next", "intersect_csr",
+           "fused_rewalk_step", "sgns_step")
 launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -99,9 +99,24 @@ def intersect_next(nbrs_v, nbrs_p, prev, u_group, u_rank, inv_p: float,
     return out
 
 
+def intersect_csr(codes, offsets, v, prev, u, dmax: int, inv_p: float,
+                  inv_q: float):
+    """The exact factorized node2vec step from the graph's CSR: codes int64
+    [E], offsets int32 [N+1], v and prev int64 [B], u f32 [B, 2], the
+    window width dmax, f32 weights -> (nxt int64 [B], found bool [B],
+    overflow bool [B]). On the card the kernel reads the segments itself."""
+    if not _on_card(codes, offsets, v, prev, u):
+        return _intersect.factorized_csr_plain(codes, offsets, v, prev, u, dmax,
+                                               inv_p, inv_q)
+    out = _intersect.factorized_csr_cuda(codes, offsets, v, prev, u, dmax,
+                                         inv_p, inv_q)
+    launches["intersect_csr"] += 1
+    return out
+
+
 def fused_rewalk_step(store, step):
     """One fused rewalk step (`megakernel.FusedStep`) over the packed
-    `store` -> (nxt int64 [B], code biased int64 [B])."""
+    `store` -> (nxt int64 [B], code biased int64 [B], overflow bool [B])."""
     if not _on_card(store.packed, step.cur):
         return _mk.fused_step_plain(store, step)
     out = _mk.fused_step_cuda(store, step)

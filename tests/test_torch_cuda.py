@@ -236,15 +236,17 @@ def test_order2_engine_on_card_equals_cpu(dev, sampler, megak):
         states.append(st)
     for k in states[0]:
         np.testing.assert_array_equal(states[0][k], states[1][k], err_msg=k)
-    if sampler == "factorized":
-        assert ops.launches["intersect_next"] > 0
+    if sampler == "factorized":   # the corpus, and the unfused steps
+        assert ops.launches["intersect_csr"] > 0
+    assert ops.launches["intersect_next"] == 0
     if megak == "fused":
         assert ops.launches["fused_rewalk_step"] > 0
 
 
 def test_fused_step_kernel_matches_plain(dev, monkeypatch):
     """The fused step's kernel against its plain version on operands the
-    card engine formed, at a prefix-heavy and an emit-heavy step."""
+    card engine formed (the graph's CSR, hubs of degree > dmax), at a
+    prefix-heavy and an emit-heavy step, and with every lane emitting."""
     from repro_torch.core.walkers import WalkModel
     n = 256
     src, dst = order2_graph(n)
@@ -268,9 +270,72 @@ def test_fused_step_kernel_matches_plain(dev, monkeypatch):
         eng.run_stream(jr.PRNGKey(step_k, dev), ins[0][:1], ins[1][:1])
         store, step = calls[step_k]
         assert bool(step.is_prefix.any()) and bool((~step.is_prefix).any())
-        got = megakernel.fused_step_cuda(store, step)
-        want = megakernel.fused_step_plain(store, step)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        all_emit = step._replace(is_prefix=torch.zeros_like(step.is_prefix))
+        for s in (step, all_emit):
+            got = megakernel.fused_step_cuda(store, s)
+            want = megakernel.fused_step_plain(store, s)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert bool(got[2].any()), "no emitting lane overflowed dmax"
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        megakernel.fused_step_cuda(store, step._replace(cur=step.cur.cpu()))
+
+
+def csr_case(n=512, b=4096, dmax=128, seed=10):
+    """A graph with four hubs of degree ~2 dmax (> dmax) and 16 isolated
+    vertices, and lanes with v and prev both hubs, v isolated, prev
+    isolated, prev == v, and uniform pairs -> (graph edges, v, prev, u f32
+    [b, 2])."""
+    rng = np.random.default_rng(seed + dmax)
+    src, dst = rng.integers(0, n - 16, size=(2, 8000))
+    hs = np.repeat(np.arange(4), 2 * dmax)
+    src = np.concatenate([src, hs])
+    dst = np.concatenate([dst, rng.integers(4, n - 16, size=hs.shape[0])])
+    v, prev = rng.integers(0, n, size=(2, b))
+    v[:8], prev[:8] = np.arange(8) % 4, (np.arange(8) + 1) % 4
+    v[8:16] = n - 1 - np.arange(8)
+    prev[16:24] = n - 1 - np.arange(8)
+    prev[24:40] = v[24:40]
+    u = rng.random((b, 2)).astype(np.float32)
+    return (src, dst), torch.from_numpy(v), torch.from_numpy(prev), torch.from_numpy(u)
+
+
+@pytest.mark.parametrize("p,q", [(0.5, 2.0), (0.25, 4.0), (4.0, 0.25)])
+def test_intersect_csr_kernel_matches_plain(dev, p, q):
+    """The CSR kernel against `factorized_csr_plain` (the windows, then the
+    windowed plain version), bit for bit, at dmax 128 and 256 (and 1024,
+    the widest: 32 entries a lane). Hub rows pass the Bloom filter with
+    more than 32 candidates and take the sorted search; the others the
+    warp compare."""
+    inv = intersect.inverse_weights(p, q)
+    for dmax in (128, 256, 1024):
+        n = max(512, 4 * dmax)
+        (src, dst), v, prev, u = csr_case(n=n, dmax=dmax)
+        g = StreamingGraph.from_edges(src, dst, n, 1 << 16, device=dev)
+        args = (g.codes, g.offsets, v.to(dev), prev.to(dev), u.to(dev))
+        got = intersect.factorized_csr_cuda(*args, dmax, *inv)
+        want = intersect.factorized_csr_plain(*args, dmax, *inv)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), dmax
+        assert bool(got[2][:8].all()) and not bool(got[1][8:16].any())
+        ops.reset_launches()
+        via = intersect.factorized_next_csr(*args, dmax, p, q)
+        assert ops.launches["intersect_csr"] == 1
+        assert all(torch.equal(a, b) for a, b in zip(via, got))
+
+
+def test_csr_wrappers_reject_cpu_tensors_and_guard(dev):
+    (src, dst), v, prev, u = csr_case(b=300)
+    g = StreamingGraph.from_edges(src, dst, 512, 1 << 15, device="cpu")
+    cpu = (g.codes, g.offsets, v, prev, u)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        intersect.factorized_csr_cuda(*cpu, 128, 1.0, 1.0)
+    card = [t.to(dev) for t in cpu]
+    with pytest.raises(ValueError, match="dmax % 128"):
+        intersect.factorized_next_csr(*card, 96, 0.5, 2.0, backend="cuda")
+    got = intersect.factorized_next_csr(*card, 96, 0.5, 2.0)    # auto: any dmax
+    want = intersect.factorized_csr_plain(*cpu, 96, *intersect.inverse_weights(0.5, 2.0))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="dmax"):
+        ops.intersect_csr(*card, 2048, 1.0, 1.0)
 
 
 # -------------------------------------- kernel 7 (SGNS) and the maintainer

@@ -47,7 +47,7 @@ def test_every_module_imports_without_a_card():
     assert set(_build.SIGNATURES) == {
         "repro_szudzik_pair", "repro_szudzik_unpair", "repro_delta_decode",
         "repro_find_next_packed", "repro_intersect_next",
-        "repro_fused_rewalk_step", "repro_sgns_step"}
+        "repro_intersect_csr", "repro_fused_rewalk_step", "repro_sgns_step"}
     from repro_torch.kernels import ops
     assert set(ops.KERNELS) == {n.removeprefix("repro_") for n in _build.SIGNATURES}
 

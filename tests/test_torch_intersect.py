@@ -1,14 +1,19 @@
-"""Kernel 5's plain version and oracle against the JAX package's intersect
+"""Kernel 5's plain versions and oracle against the JAX package's intersect
 backends ("xla-ref", and "interpret", which runs the Pallas kernel body's
-`_choose_math`), on the generator of tests/test_kernels.py, bit for bit;
-and the backend registry and guards."""
+`_choose_math`), bit for bit: the windowed form on the generator of
+tests/test_kernels.py, and the CSR form (`factorized_csr_plain`, the card
+kernel's plain version) against the reference's windows of a graph with
+hubs and isolated vertices; and the backend registry and guards."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import repro.core  # noqa: F401
+from repro.core import StreamingGraph as JGraph
+from repro.core import walkers as jw
 from repro.kernels import intersect as jint
+from repro_torch.core import StreamingGraph
 from repro_torch.kernels import intersect, ops
 
 SENT = np.uint32(0xFFFFFFFF)
@@ -120,3 +125,72 @@ def test_registry_and_explicit_cuda_guard():
         intersect.factorized_cuda(*case[:5], 1.0, 1.0)
     nxt, _ = intersect.factorized_next(*case, backend="auto")
     assert nxt.shape == (12,)
+
+
+def _csr_case(dmax, n=512, b=384, seed=0):
+    """Edges on n vertices with four hubs of degree ~2 dmax (> dmax) and
+    the last 16 vertices isolated; lanes with v and prev both hubs, v
+    isolated, prev isolated, prev == v, prev a neighbor of v, and uniform
+    pairs. -> (src, dst, v, prev, u f32 [b, 2])."""
+    rng = np.random.default_rng(seed + dmax)
+    src, dst = rng.integers(0, n - 16, size=(2, 6000))
+    hs = np.repeat(np.arange(4), 2 * dmax)
+    src = np.concatenate([src, hs])
+    dst = np.concatenate([dst, rng.integers(4, n - 16, size=hs.shape[0])])
+    v, prev = rng.integers(0, n, size=(2, b))
+    v[:8], prev[:8] = np.arange(8) % 4, (np.arange(8) + 1) % 4   # hub, hub
+    v[8:16], prev[8:16] = n - 1 - np.arange(8), rng.integers(0, n, size=8)
+    prev[16:24] = n - 1 - np.arange(8)                           # isolated prev
+    prev[24:40] = v[24:40]                                       # prev == v
+    for i in range(40, 72):                                      # prev ~ v
+        nb = dst[src == v[i]]
+        prev[i] = nb[i % nb.shape[0]] if nb.shape[0] else prev[i]
+    return src, dst, v, prev, rng.random((b, 2)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dmax", [128, 256, 96])
+@pytest.mark.parametrize("p,q", [(0.5, 2.0), (0.25, 4.0), (4.0, 0.25)])
+def test_factorized_csr_plain_matches_reference(dmax, p, q):
+    n = 512
+    src, dst, v, prev, u = _csr_case(dmax, n)
+    jg = JGraph.from_edges(jnp.asarray(src, jnp.uint32),
+                           jnp.asarray(dst, jnp.uint32), n, 1 << 15)
+    tg = StreamingGraph.from_edges(src, dst, n, 1 << 15, device="cpu")
+    nbrs_v, deg_v = jw._neighbor_window(jg, v, dmax)
+    nbrs_p, deg_p = jw._neighbor_window(jg, prev, dmax)
+    nxt, found = jint.factorized_next(nbrs_v, nbrs_p, jnp.asarray(prev, jnp.uint32),
+                                      jnp.asarray(u[:, 0]), jnp.asarray(u[:, 1]),
+                                      p, q, backend="xla-ref")
+    found = np.asarray(found)
+    want = (np.asarray(nxt).astype(np.int64) * found, found,
+            np.asarray((deg_v > dmax) | (deg_p > dmax)))
+    deg = np.asarray(tg.degrees())
+    assert (deg[v] > dmax).any() and (deg[prev] > dmax).any()
+    assert (deg[v] == 0).any() and (deg[prev] == 0).any() and (v == prev).any()
+    tv, tp = (torch.from_numpy(a.astype(np.int64)) for a in (v, prev))
+    tu = torch.from_numpy(u)
+    inv = intersect.inverse_weights(p, q)
+    got = intersect.factorized_csr_plain(tg.codes, tg.offsets, tv, tp, tu, dmax, *inv)
+    np.testing.assert_array_equal((got[0] * got[1]).numpy(), want[0])
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    np.testing.assert_array_equal(got[2].numpy(), want[2])
+    for backend in ("torch", "ref", "auto"):
+        alt = intersect.factorized_next_csr(tg.codes, tg.offsets, tv, tp, tu, dmax,
+                                            p, q, backend=backend)
+        for a, b in zip(alt, got):
+            assert torch.equal(a, b), backend
+    assert torch.equal(ops.intersect_csr(tg.codes, tg.offsets, tv, tp, tu, dmax,
+                                         *inv)[0], got[0])
+
+
+def test_csr_explicit_cuda_request_guards():
+    src, dst, v, prev, u = _csr_case(96)
+    tg = StreamingGraph.from_edges(src, dst, 512, 1 << 15, device="cpu")
+    args = (tg.codes, tg.offsets, torch.from_numpy(v), torch.from_numpy(prev),
+            torch.from_numpy(u))
+    with pytest.raises(ValueError, match="card"):
+        intersect.factorized_next_csr(*args, 128, 0.5, 2.0, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        intersect.factorized_csr_cuda(*args, 128, 1.0, 1.0)
+    window = intersect.neighbor_window(tg.codes, tg.offsets, args[2], 96)[0]
+    assert window.shape == (v.shape[0], 96)
