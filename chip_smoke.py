@@ -33,12 +33,18 @@ every phase passed):
      builds a neighbor window (`intersect.neighbor_window` is never called)
   5. each kernel against its plain PyTorch version on the card, on the
      main paths' tensors plus edge cases, timed with CUDA events beside its
-     bound (bytes at 3.35 TB/s or operations at 67 T/s): kernels 1-6 bit
+     bound (bytes at 3.35 TB/s or operations at 67 T/s; the bytes count
+     each input read once, so a chunk or CSR segment that many queries or
+     rows read counts once, and what the data needs): kernels 1-6 bit
      for bit; kernel 7 (the f32 SGNS step) within loss rtol 1e-5 and
      gradients rtol 1e-5 / atol 1e-6, its sums being taken in another order.
-     Kernels 5 and 6 are also timed in turns against the composition they
-     replaced: the two neighbor windows built in torch (plus, for kernel 5,
-     the windowed kernel, which no main path launches any more)
+     `ms` is the mean of back-to-back runs on the same buffers (which may
+     hit the 50 MB L2), `ms_cold` the median of 30 single runs, each after
+     a 256 MB write and read that evict L2. Kernel 4 is also held and timed
+     on the operands of the first prefix-read call of phase 4's profiled
+     unfused batch. Kernels 5 and 6 are also timed in turns against the composition
+     they replaced: the two neighbor windows built in torch (plus, for
+     kernel 5, the windowed kernel, which no main path launches any more)
 Phase 2 also runs a small maintainer on the card against the CPU and
 against a plain engine. Each phase prints one JSON line.
 """
@@ -69,6 +75,8 @@ from repro_torch.kernels import range_search, sgns, szudzik  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12      # H100 float32 outside the tensor cores
+FLUSH_BYTES = 256 << 20       # a write this large evicts the H100's 50 MB L2
+COLD_REPS = 30
 
 # the wharf-stream configuration (src/repro/configs/wharf_stream.py:17-42)
 # and its stream_10k_mixed traffic, cut in scale only
@@ -157,11 +165,45 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cold_ms(fn, reps: int = COLD_REPS) -> float:
+    """Median device time of fn() over `reps` single runs, after one
+    warm-up. Before each run (not timed) FLUSH_BYTES are written, which
+    evicts L2, then read back, which evicts the write's dirty lines: the run
+    finds none of its operands in L2 and writes back no line of the flush."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    times = []
+    for i in range(reps):
+        flush.fill_(i & 0xFF)
+        flush.amax()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     return out.splitlines()[0]
+
+
+def sm_clock_mhz(cycles: int = 2_000_000) -> float:
+    """The SM clock the card runs at now (MHz), from the device time of a
+    spin of `cycles` SM clock cycles (`torch.cuda._sleep`): a latency-bound
+    kernel slows with the clock, a bandwidth-bound one barely."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return cycles / (start.elapsed_time(end) * 1e3)
 
 
 # ---------------------------------------------------------------- phase 2
@@ -453,11 +495,10 @@ def phase_maintainer(dev, host_state):
     return res, kept
 
 
-def phase_full_n2v(dev):
-    """wharf-stream order 2 at full width: the corpus once, then the
-    batches unfused and again fused from the same corpus and keys. The
-    counts are set to 0 before the corpus and before each path's batches
-    and read just after them."""
+def n2v_stream(dev):
+    """Phase 4's walk config and data from its seeded generator: the
+    graph's edges, then the inserts of the timed batches and the profiled
+    one -> (cfg, src, dst, ins, the generator)."""
     c = N2V
     n = c["n_vertices"]
     model = WalkModel(order=2, p=c["p"], q=c["q"], sampler=c["sampler"],
@@ -465,25 +506,65 @@ def phase_full_n2v(dev):
     cfg = WalkConfig(n_walks_per_vertex=c["n_walks_per_vertex"],
                      length=c["length"], chunk_b=c["chunk_b"], model=model,
                      megakernel="off")
-    n_walks = n * cfg.n_walks_per_vertex
     gen = torch.Generator(device=dev)
     gen.manual_seed(2023)
     src, dst = uniform_pairs(gen, n, n * c["mean_degree"] // 2, dev)
     nb, ni = c["n_batches"], c["batch_inserts"]
     ins = [x.reshape(nb + 1, ni) for x in uniform_pairs(gen, n, (nb + 1) * ni, dev)]
+    return cfg, src, dst, ins, gen
+
+
+def n2v_graph(src, dst, dev):
+    """Phase 4's graph from its edges."""
+    return StreamingGraph.from_edges(src, dst, N2V["n_vertices"], N2V["edge_capacity"],
+                                     device=dev)
+
+
+def n2v_corpus(graph, cfg, dev):
+    """Phase 4's corpus under its key."""
+    return generate_corpus(jr.PRNGKey(0, dev), graph, cfg)
+
+
+def n2v_engine(graph, store, cfg, megakernel: str):
+    """Phase 4's engine over this graph and corpus."""
+    c = N2V
+    return WalkEngine(graph=graph, store=store, cfg=cfg._replace(megakernel=megakernel),
+                      merge_policy=c["merge_policy"], merge_impl=c["merge_impl"],
+                      rewalk_capacity=c["n_vertices"] * cfg.n_walks_per_vertex,
+                      max_pending=c["max_pending"])
+
+
+def n2v_batch(eng, ins, i: int):
+    """Batch i of phase 4's stream under its key: the timed batches i <
+    n_batches one insert row each, then (i = n_batches) the profiled batch,
+    the remaining rows and an empty delete list -> the affected counts."""
+    dev, nb = ins[0].device, N2V["n_batches"]
+    key = jr.fold_in(jr.PRNGKey(1, dev), i)
+    if i < nb:
+        return eng.run_stream(key, ins[0][i:i + 1], ins[1][i:i + 1])
     no_dels = [torch.zeros((1, 0), dtype=torch.int64, device=dev)] * 2
+    return eng.run_stream(key, ins[0][nb:], ins[1][nb:], *no_dels)
+
+
+def phase_full_n2v(dev):
+    """wharf-stream order 2 at full width: the corpus once, then the
+    batches unfused and again fused from the same corpus and keys. The
+    counts are set to 0 before the corpus and before each path's batches
+    and read just after them."""
+    c = N2V
+    n = c["n_vertices"]
+    cfg, src, dst, ins, gen = n2v_stream(dev)
+    n_walks = n * cfg.n_walks_per_vertex
+    nb = c["n_batches"]
     w = torch.randint(0, n_walks, (1 << 14,), generator=gen, device=dev)
     start = walk_start_vertex(w, cfg.n_walks_per_vertex)
-    key = jr.PRNGKey(1, dev)
     torch.cuda.reset_peak_memory_stats()
 
     ops.reset_launches()    # ---- the corpus, counted from here
     with window_calls() as wins:
-        graph, t_graph = sync_time(lambda: StreamingGraph.from_edges(
-            src, dst, n, c["edge_capacity"], device=dev))
+        graph, t_graph = sync_time(lambda: n2v_graph(src, dst, dev))
         del src, dst
-        store0, t_corpus = sync_time(lambda: generate_corpus(
-            jr.PRNGKey(0, dev), graph, cfg))
+        store0, t_corpus = sync_time(lambda: n2v_corpus(graph, cfg, dev))
     launches = {"corpus": dict(ops.launches)}
     windows = {"corpus": wins[0]}
     peak = {"corpus": torch.cuda.max_memory_allocated() / 1e9}
@@ -491,9 +572,7 @@ def phase_full_n2v(dev):
     triplets = store0.size
     runs, saved, kept = {}, None, {}
     for path, mk in (("unfused", "off"), ("fused", "cuda")):
-        eng = WalkEngine(graph=graph, store=store0, cfg=cfg._replace(megakernel=mk),
-                         merge_policy=c["merge_policy"], merge_impl=c["merge_impl"],
-                         rewalk_capacity=n_walks, max_pending=c["max_pending"])
+        eng = n2v_engine(graph, store0, cfg, mk)
         if path == "fused":
             del store0
         batch_ms, affected, batch_launches = [], [], []
@@ -502,8 +581,7 @@ def phase_full_n2v(dev):
         with window_calls() as wins:
             for i in range(nb):
                 before = dict(ops.launches)
-                aff, dt = sync_time(lambda: eng.run_stream(
-                    jr.fold_in(key, i), ins[0][i:i + 1], ins[1][i:i + 1]))
+                aff, dt = sync_time(lambda: n2v_batch(eng, ins, i))
                 batch_ms.append(dt * 1e3)
                 affected.append(int(aff[0]))
                 batch_launches.append({k: ops.launches[k] - before[k]
@@ -522,18 +600,27 @@ def phase_full_n2v(dev):
             del saved
         del state
         # one more batch under the profiler, with 3 pending blocks; the
-        # operands of one kernel call are kept for phase 5
-        name, at = (("intersect_csr", cfg.length // 2) if path == "unfused"
-                    else ("fused_rewalk_step", 5))
-        with keep_operands(name, at) as got, window_calls() as wins:
-            prof = profile_batch(lambda: eng.run_stream(
-                jr.fold_in(key, nb), ins[0][nb:], ins[1][nb:], *no_dels))
-        assert got, f"{name}: operands not kept"
+        # operands of one call of each kernel named here are kept for
+        # phase 5 (unfused: a rewalk step's kernel 5, and the first
+        # prefix-read call's kernel 4, whose device time and share of the
+        # prefix read the profile reports)
+        if path == "unfused":
+            keep = {"intersect_csr": cfg.length // 2, "find_next_packed": 0}
+            watch = dict(kernel="search_kernel", layer="wharf.prefix")
+        else:
+            keep, watch = {"fused_rewalk_step": 5}, {}
+        with contextlib.ExitStack() as stack:
+            got = {name: stack.enter_context(keep_operands(name, at))
+                   for name, at in keep.items()}
+            wins = stack.enter_context(window_calls())
+            prof = profile_batch(lambda: n2v_batch(eng, ins, nb), **watch)
         windows[path] += wins[0]
-        kept[name] = got.pop()
-        if path == "unfused":   # off the card while the fused path runs
-            kept[name] = [t.cpu() if isinstance(t, torch.Tensor) else t
-                          for t in kept[name]]
+        for name, g in got.items():
+            assert g, f"{name}: operands not kept"
+            kept[name] = g.pop()
+            if path == "unfused":   # off the card while the fused path runs
+                kept[name] = [t.cpu() if isinstance(t, torch.Tensor) else t
+                              for t in kept[name]]
         # the overlay read (base + pending) = the read after the merge
         ov_paths, t_ov = sync_time(lambda: eng.overlay().traverse(
             w, start, cfg.length - 1))
@@ -637,12 +724,19 @@ def state_tensors(eng, pending: bool = True) -> dict:
 LAYERS = ("wharf.", "maintainer.")   # the record_function scopes of the port
 
 
-def profile_batch(run, kernel: str = None):
+def profile_batch(run, kernel: str = None, layer: str = None):
     """One more batch, `run()`, under torch.profiler: wall time, the
     device's busy and idle share, the device and host time of each layer
     scope, the top operators by device time and, if named, the device
     time of the kernels whose name holds `kernel` and their share of the
-    busy time."""
+    busy time and of the device time of the scope `layer`.
+
+    Device time comes from the device's own records: every kernel counts
+    toward busy time, and a layer's device time is that of the kernels
+    that ran inside the layer's span on the device. (The port's kernels are
+    launched through ctypes, inside no PyTorch operator, so the profiler
+    links them to no host event: a sum of the host events' kernels leaves
+    most of them out.)"""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -651,28 +745,40 @@ def profile_batch(run, kernel: str = None):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # kernel time from the launching ops (user-annotation ranges, which the
-    # trace also reports on the device, are spans and are not summed)
-    ops_ = [e for e in prof.events() if e.device_type == DeviceType.CPU]
-    busy_ms = sum(k.duration for e in ops_ for k in e.kernels) / 1e3
+    spans, kerns = {}, []   # layer -> device spans; (start, end, name) a kernel
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name.startswith(LAYERS):
+            spans.setdefault(e.name, []).append((e.time_range.start, e.time_range.end))
+        else:
+            kerns.append((e.time_range.start, e.time_range.end, e.name))
+    busy_ms = sum(t - s for s, t, _ in kerns) / 1e3
     if not busy_ms:
         return dict(wall_ms=wall * 1e3, device_busy="not measured")
-    layers, layers_host = {}, {}
-    for e in ops_:
-        if e.name.startswith(LAYERS):
-            layers[e.name] = layers.get(e.name, 0.0) + e.device_time_total / 1e3
+
+    def inside(name, span_list):
+        return sum(t - s for s, t, n in kerns if name in n
+                   and any(a <= s and t <= b for a, b in span_list)) / 1e3
+
+    layers = {name: inside("", sp) for name, sp in spans.items()}
+    layers_host = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith(LAYERS):
             layers_host[e.name] = layers_host.get(e.name, 0.0) + e.cpu_time_total / 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.key.startswith(LAYERS)]
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and not e.key.startswith(LAYERS)),
+                 key=lambda e: -e.self_device_time_total)[:8]
     out = dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
                device_idle_share=1 - busy_ms / (wall * 1e3),
                layer_kernel_ms=layers, layer_host_ms=layers_host,
                top_kernels_ms={e.key[:100]: e.self_device_time_total / 1e3
                                for e in top})
     if kernel:
-        k_ms = sum(e.self_device_time_total for e in kernels if kernel in e.key) / 1e3
+        k_ms = sum(t - s for s, t, n in kerns if kernel in n) / 1e3
         out[kernel] = dict(device_ms=k_ms, share_of_busy=k_ms / busy_ms)
+        if layer:
+            out[kernel]["share_of_" + layer] = inside(kernel, spans[layer]) / layers[layer]
     return out
 
 
@@ -697,24 +803,52 @@ def exact(a, b, what: str) -> float:
     return 0.0
 
 
-def kernel_row(rows, name, err, ms, plain_ms, bytes_moved, ops_done, shape,
+def kernel_row(rows, name, err, fn, ms, plain_ms, bytes_moved, ops_done, shape,
                **extra):
-    """One entry of the `kernels` line; `launches` is filled in by main()
-    from the main paths' counts."""
+    """One entry of the `kernels` line for the kernel call `fn`, timed warm
+    by the caller (`ms`) and cold here (`ms_cold`), with the SM clock
+    measured just after; `launches` is filled in by main() from the main
+    paths' counts."""
     b_ms, b_by = bound(bytes_moved, ops_done)
     src, rep = KERNEL_META[name]
     rows.append(dict(name=name, route="cuda", source=src, replaces=rep,
-                     launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape,
-                     **extra))
+                     launches=None, max_abs_err=err, ms=ms, ms_cold=cold_ms(fn),
+                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     shape=shape, sm_clock_mhz=sm_clock_mhz(), **extra))
+
+
+def search_work(pk, wd, ah, al, cidx, f_t, slab: int = 1 << 16):
+    """Bytes and operations of a packed FINDNEXT call on these operands:
+    each query's K indices (u32) and target and outputs (u32 v, found);
+    each chunk that a query visits (up to and including its first chunk
+    with a hit, all K on a miss) read once however many queries visit it
+    (used words, width, anchor); per visited code of a query a decode
+    step, an unpair and a compare (14 operations). Counted in slabs of
+    queries -> (bytes, operations, visited chunks, distinct chunks)."""
+    k = cidx.shape[1]
+    dev = cidx.device
+    seen = torch.zeros(pk.shape[0], dtype=torch.bool, device=dev)
+    visited_total = 0
+    for s in range(0, cidx.shape[0], slab):
+        ci, ft = cidx[s:s + slab].to(torch.int64), f_t[s:s + slab]
+        codes = delta.decode_rows_plain(pk, wd, ah, al, ci.reshape(-1))
+        fk, _ = pairing.szudzik_unpair(codes)
+        hit_k = (fk.reshape(-1, k, delta.CHUNK) == ft[:, None, None]).any(-1)
+        visited = torch.where(hit_k.any(-1), hit_k.to(torch.int8).argmax(-1) + 1, k)
+        vis_mask = torch.arange(k, device=dev)[None] < visited[:, None]
+        seen[ci[vis_mask]] = True
+        visited_total += int(visited.sum())
+    nbytes = (cidx.numel() * 4.0 + f_t.numel() * 9.0
+              + float((used_words(wd)[seen] * 4 + 12).sum()))
+    return nbytes, 14.0 * delta.CHUNK * visited_total, visited_total, int(seen.sum())
 
 
 def phase_kernels(dev, tensors):
     store = tensors["store"]
     rows = []
 
-    def row(*args):
-        kernel_row(rows, *args)
+    def row(*args, **extra):
+        kernel_row(rows, *args, **extra)
 
     # Bytes are counted at the reference's types, which the function needs:
     # vertex ids, slots, positions and epochs are u32 (4 B), codes u64.
@@ -728,16 +862,23 @@ def phase_kernels(dev, tensors):
     f = torch.cat([f, edge])
     v = torch.cat([v, edge.flip(0)])
     err = exact([szudzik.pair_cuda(f, v)], [pairing.szudzik_pair(f, v)], "pair")
-    row("szudzik_pair", err, event_ms(lambda: szudzik.pair_cuda(f, v), 20),
+    # views off a 16-byte boundary (both operands, or one), odd lengths
+    for a, b in ((f[1:], v[1:]), (f[1:], v[:-1]), (f[:-1], v[1:]), (f[2:-1], v[2:-1])):
+        exact([szudzik.pair_cuda(a, b)], [pairing.szudzik_pair(a, b)], "pair (views)")
+    # the port's types: two int64 operands read, one int64 code written
+    run = lambda: szudzik.pair_cuda(f, v)  # noqa: E731
+    row("szudzik_pair", err, run, event_ms(run, 20),
         event_ms(lambda: pairing.szudzik_pair(f, v), 3), 16 * f.numel(),
-        6 * f.numel(), list(f.shape))
+        6 * f.numel(), list(f.shape),
+        bound_ms_port_types=24 * f.numel() / HBM_BYTES_PER_S * 1e3)
 
     # unpair: the MAV gather's share of the store (2^24 codes) plus edge codes
     z = torch.cat([store.code[: 1 << 24], torch.tensor(
         [-(1 << 63), -(1 << 63) + 1, (1 << 63) - 1, (1 << 63) - 2,
          (2**32 - 1) ** 2 - (1 << 63)], device=dev)])
     err = exact(szudzik.unpair_cuda(z), pairing.szudzik_unpair(z), "unpair")
-    row("szudzik_unpair", err, event_ms(lambda: szudzik.unpair_cuda(z), 20),
+    run = lambda: szudzik.unpair_cuda(z)  # noqa: E731
+    row("szudzik_unpair", err, run, event_ms(run, 20),
         event_ms(lambda: pairing.szudzik_unpair(z), 3), 16 * z.numel(),
         12 * z.numel(), list(z.shape))
     t_full = event_ms(lambda: szudzik.unpair_cuda(store.code), 3)
@@ -750,8 +891,8 @@ def phase_kernels(dev, tensors):
     err = exact([delta.decode_rows_cuda(pk, wd, ah, al, idx)],
                 [delta.decode_rows_plain(pk, wd, ah, al, idx)], "decode")
     nbytes = float((used_words(wd) * 4 + 4 + 8 + 8 + 8 * delta.CHUNK).sum())
-    row("delta_decode", err,
-        event_ms(lambda: delta.decode_rows_cuda(pk, wd, ah, al, idx), 10),
+    run = lambda: delta.decode_rows_cuda(pk, wd, ah, al, idx)  # noqa: E731
+    row("delta_decode", err, run, event_ms(run, 10),
         event_ms(lambda: delta.decode_rows_plain(pk, wd, ah, al, idx), 1),
         nbytes, 8.0 * delta.CHUNK * store.n_chunks, [store.n_chunks, delta.CHUNK])
 
@@ -771,19 +912,17 @@ def phase_kernels(dev, tensors):
                 range_search.find_next_packed_plain(*args, cidx, f_t), "search")
     exact(range_search.find_next_packed_cuda(*args, cidx_late, f_t),
           range_search.find_next_packed_plain(*args, cidx_late, f_t), "search K-1")
-    # bytes: indices, target and outputs (u32 f and v, found), and the
-    # chunks visited up to the hit
-    codes = delta.decode_rows_plain(pk, wd, ah, al, cidx.reshape(-1).to(torch.int64))
-    fk, _ = pairing.szudzik_unpair(codes)
-    hit_k = (fk.reshape(-1, k, delta.CHUNK) == f_t[:, None, None]).any(-1)
-    visited = torch.where(hit_k.any(-1), hit_k.to(torch.int8).argmax(-1) + 1, k)
-    vis_mask = torch.arange(k, device=dev)[None] < visited[:, None]
-    chunk_bytes = used_words(wd)[cidx.to(torch.int64)] * 4 + 12
-    nbytes = float((chunk_bytes * vis_mask).sum()) + cidx.numel() * 4 + f_t.numel() * 9
-    row("find_next_packed", err,
-        event_ms(lambda: range_search.find_next_packed_cuda(*args, cidx, f_t), 20),
+    # K = 1 and K = 32 windows (the kernel's bounds)
+    for kk in (1, range_search.MAX_WINDOW):
+        ck = ((lo // delta.CHUNK)[:, None] + torch.arange(kk, device=dev)[None]
+              ).clamp(0, store.n_chunks - 1).to(torch.int32)
+        exact(range_search.find_next_packed_cuda(*args, ck, f_t),
+              range_search.find_next_packed_plain(*args, ck, f_t), f"search K={kk}")
+    nbytes, nops, visited, distinct = search_work(*args, cidx, f_t)
+    run = lambda: range_search.find_next_packed_cuda(*args, cidx, f_t)  # noqa: E731
+    row("find_next_packed", err, run, event_ms(run, 20),
         event_ms(lambda: range_search.find_next_packed_plain(*args, cidx, f_t), 2),
-        nbytes, 14.0 * delta.CHUNK * float(vis_mask.sum()), list(cidx.shape))
+        nbytes, nops, list(cidx.shape), visited_chunks=visited, distinct_chunks=distinct)
     return rows
 
 
@@ -835,25 +974,36 @@ def segment_entries(offsets, verts, dmax):
     return deg[verts]
 
 
+def segment_bytes(offsets, dmax, *verts):
+    """The CSR bytes rows of these vertices read, each segment once however
+    many rows read it: 8 B a code (min(deg, dmax) codes) and its two
+    offsets (u32)."""
+    seen = torch.zeros(offsets.shape[0] - 1, dtype=torch.bool, device=offsets.device)
+    for v in verts:
+        seen[v] = True
+    return float((segment_entries(offsets, seen.nonzero()[:, 0], dmax) * 8 + 8).sum())
+
+
 def csr_work(offsets, v, prev, dmax):
-    """Bytes and operations of the CSR step on these rows: each row's two
-    segments (8 B a code, min(deg, dmax) codes each), its four offsets, v
-    and prev (u32), two f32 uniforms, and the outputs (u32 nxt, found,
-    overflow), each read or written once; ~30 operations (a binary search
-    and a few ballots) per v entry."""
+    """Bytes and operations of the CSR step on these rows: the segments of
+    the rows' v and prev (`segment_bytes`), each row's v and prev (u32) and
+    two f32 uniforms, and the outputs (u32 nxt, found, overflow), each read
+    or written once; ~30 operations (a binary search and a few ballots) per
+    v entry of a row."""
     nv, np_ = segment_entries(offsets, v, dmax), segment_entries(offsets, prev, dmax)
-    nbytes = 8.0 * float((nv + np_).sum()) + 38.0 * v.shape[0]
+    nbytes = segment_bytes(offsets, dmax, v, prev) + 22.0 * v.shape[0]
     return nbytes, 30.0 * float(nv.sum()), float((nv + np_).sum()) / (2 * v.shape[0])
 
 
 def fused_work(store, step, nxt):
     """Bytes and operations one fused step needs on these inputs: every
     lane's scalars (two flags; lo, hi, ft, cur, slot_epoch as u32) and
-    outputs (u32 nxt, u64 code, overflow); a pending hit's u32 next; a
-    FINDNEXT lane's chunks up to the one holding its hit (all K, or up to
-    hi, if it misses) and one epoch; an emitting lane's two CSR segments
-    (8 B a code, min(deg, dmax) codes each), four offsets, u32 prev and two
-    f32 uniforms."""
+    outputs (u32 nxt, u64 code, overflow); a pending hit's u32 next; the
+    chunks FINDNEXT lanes visit, each once (a lane's run up to the chunk
+    holding its hit, all K or up to hi if it misses), and a FINDNEXT
+    lane's epoch; the CSR segments of the emitting lanes' cur and prev
+    (`segment_bytes`) and an emitting lane's u32 prev and two f32
+    uniforms."""
     k, dev = step.window, step.cur.device
     b = step.cur.shape[0]
     need = step.is_prefix & ~step.pend_hit & (step.lo < step.hi)
@@ -870,13 +1020,15 @@ def fused_work(store, step, nxt):
     visited = torch.where(hit & (last >= 1) & (last <= span), last, span)
     visited = torch.where(need, visited, 0)
     c = (c0[:, None] + torch.arange(k, device=dev)[None]).clamp(0, store.n_chunks - 1)
-    per_chunk = used_words(store.widths)[c] * 4 + 12
     in_v = torch.arange(k, device=dev)[None] < visited[:, None]
+    seen = torch.zeros(store.n_chunks, dtype=torch.bool, device=dev)
+    seen[c[in_v]] = True
     nv = segment_entries(step.offsets, step.cur[emit], step.dmax)
-    np_ = segment_entries(step.offsets, step.prev[emit], step.dmax)
     nbytes = (35.0 * b + 4.0 * float(step.pend_hit.sum())
-              + float((per_chunk * in_v).sum()) + 4.0 * float(need.sum())
-              + 8.0 * float((nv + np_).sum()) + 28.0 * float(emit.sum()))
+              + float((used_words(store.widths)[seen] * 4 + 12).sum())
+              + 4.0 * float(need.sum())
+              + segment_bytes(step.offsets, step.dmax, step.cur[emit], step.prev[emit])
+              + 12.0 * float(emit.sum()))
     nops = 14.0 * delta.CHUNK * float(visited.sum()) + 30.0 * float(nv.sum())
     return nbytes, nops, int(need.sum()), int(emit.sum())
 
@@ -885,6 +1037,25 @@ def in_turns(a, b, reps_a: int, reps_b: int):
     """Mean device times of a and b, timed a, b, b, a -> ([a1, a2], [b1, b2])."""
     t = [event_ms(f, r) for f, r in ((a, reps_a), (b, reps_b), (b, reps_b), (a, reps_a))]
     return [t[0], t[3]], [t[1], t[2]]
+
+
+def prefix_read_search(dev, kept):
+    """Kernel 4 on the operands of the first prefix-read call of phase 4's
+    profiled unfused batch: held against its plain version, timed warm and
+    cold beside its bound (`search_work`)."""
+    args = [t.to(dev) for t in kept.pop("find_next_packed")]
+    err = exact(range_search.find_next_packed_cuda(*args),
+                range_search.find_next_packed_plain(*args), "search (prefix read)")
+    nbytes, nops, visited, distinct = search_work(*args)
+    b_ms, b_by = bound(nbytes, nops)
+
+    def run():
+        return range_search.find_next_packed_cuda(*args)
+
+    return dict(shape=list(args[4].shape), max_abs_err=err, ms=event_ms(run, 10),
+                ms_cold=cold_ms(run), sm_clock_mhz=sm_clock_mhz(), bound_ms=b_ms,
+                bound_by=b_by, visited_chunks=visited, distinct_chunks=distinct,
+                found_share=float(run()[1].float().mean()))
 
 
 def phase_kernels_n2v(dev, kept):
@@ -930,8 +1101,8 @@ def phase_kernels_n2v(dev, kept):
         for case in (edge, head):
             exact(intersect.factorized_cuda(*case, *w),
                   intersect.factorized_plain(*case, *w), f"intersect p={p} q={q}")
-    kernel_row(rows, "intersect_next", err_w,
-               event_ms(lambda: intersect.factorized_cuda(*wargs, inv_p, inv_q), 20),
+    run = lambda: intersect.factorized_cuda(*wargs, inv_p, inv_q)  # noqa: E731
+    kernel_row(rows, "intersect_next", err_w, run, event_ms(run, 20),
                event_ms(lambda: intersect.factorized_plain(*wargs, inv_p, inv_q), 1),
                8.0 * b * d + 17.0 * b, 30.0 * b * d, [b, d])
     del wargs, head, got_w
@@ -940,10 +1111,10 @@ def phase_kernels_n2v(dev, kept):
         nv, npv = windows()
         return intersect.factorized_cuda(nv, npv, prev, ug, ur, inv_p, inv_q)
 
-    t_csr, t_old = in_turns(lambda: intersect.factorized_csr_cuda(*csr, dmax, inv_p, inv_q),
-                            old_composition, 20, 5)
+    run = lambda: intersect.factorized_csr_cuda(*csr, dmax, inv_p, inv_q)  # noqa: E731
+    t_csr, t_old = in_turns(run, old_composition, 20, 5)
     nbytes, nops, mean_entries = csr_work(offsets, v, prev, dmax)
-    kernel_row(rows, "intersect_csr", err, sum(t_csr) / 2,
+    kernel_row(rows, "intersect_csr", err, run, sum(t_csr) / 2,
                event_ms(lambda: intersect.factorized_csr_plain(*csr, dmax, inv_p, inv_q), 1),
                nbytes, nops, [b, dmax], ms_turns=t_csr, old_composition_ms=t_old,
                mean_entries_per_segment=mean_entries,
@@ -972,9 +1143,9 @@ def phase_kernels_n2v(dev, kept):
         return (intersect.neighbor_window(step.codes, step.offsets, step.cur, step.dmax),
                 intersect.neighbor_window(step.codes, step.offsets, step.prev, step.dmax))
 
-    t_new, t_win = in_turns(lambda: megakernel.fused_step_cuda(store, step),
-                            windows_of_lanes, 10, 3)
-    kernel_row(rows, "fused_rewalk_step", err, sum(t_new) / 2,
+    run = lambda: megakernel.fused_step_cuda(store, step)  # noqa: E731
+    t_new, t_win = in_turns(run, windows_of_lanes, 10, 3)
+    kernel_row(rows, "fused_rewalk_step", err, run, sum(t_new) / 2,
                event_ms(lambda: megakernel.fused_step_plain(store, step), 1),
                nbytes, nops, [step.cur.shape[0], step.dmax],
                findnext_lanes=n_find, emit_lanes=n_emit,
@@ -1036,7 +1207,8 @@ def phase_kernels_sgns(dev, kept):
     # bytes: u, v+ and K rows v- read once, du, dv+ and K rows dv- and the
     # loss written once (f32); operations a row: the K + 1 dot products,
     # du, dv+ and dv- ((5K + 4) D)
-    kernel_row(rows, "sgns_step", err, event_ms(lambda: sgns.sgns_cuda(u, vp, vn), 20),
+    run = lambda: sgns.sgns_cuda(u, vp, vn)  # noqa: E731
+    kernel_row(rows, "sgns_step", err, run, event_ms(run, 20),
                event_ms(lambda: sgns.sgns_plain(u, vp, vn), 3),
                8.0 * (k + 2) * d * b + 4.0 * b, (5.0 * k + 4) * d * b, [b, k, d],
                edge_case_max_abs_err=edge)
@@ -1062,8 +1234,10 @@ def main() -> int:
     sgns_rows = phase_kernels_sgns(dev, kept)
     del kept
     n2v, kept = phase_full_n2v(dev)
+    prefix_read = prefix_read_search(dev, kept)
     kernels += phase_kernels_n2v(dev, kept) + sgns_rows
     del kept
+    next(r for r in kernels if r["name"] == "find_next_packed")["prefix_read"] = prefix_read
     # each kernel's launches on the main paths: order 1 (phase 3), the
     # maintainer (phase 3b), and the order-2 corpus, unfused and fused
     # batches (phase 4)

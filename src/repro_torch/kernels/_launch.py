@@ -9,12 +9,20 @@ from repro_torch.kernels import _build
 def call(name: str, device: torch.device, *args) -> None:
     """Launch C entry point `name` on `device`'s current stream with
     `args` (tensors pass their data pointer, ints pass as they are), and
-    raise if the launch was refused."""
+    raise if the launch was refused. The stream comes from PyTorch's
+    raw-stream getter: a `torch.cuda.Stream` object for `.cuda_stream`
+    costs more host time than a small kernel runs. The current device is
+    switched only when `device` is another one."""
     fn = getattr(_build.lib(), name)
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        _build.check(fn(*conv, stream), name)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = fn(*conv, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*conv, torch._C._cuda_getCurrentRawStream(index))
+    _build.check(err, name)
 
 
 def require(t: torch.Tensor, dtype: torch.dtype, name: str) -> torch.Tensor:

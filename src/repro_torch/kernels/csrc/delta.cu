@@ -45,10 +45,13 @@ __global__ void decode_kernel(const uint32_t* __restrict__ packed,
 
 }  // namespace
 
+// packed int32 [C, 256] (16-byte aligned), widths / anchors int32 [C],
+// rows int64 [n_rows] -> out int64 [n_rows, 128].
 extern "C" int repro_delta_decode(const uint32_t* packed, const uint32_t* widths,
                                   const uint32_t* a_hi, const uint32_t* a_lo,
                                   const long long* rows, long long* out,
                                   long long n_rows, void* stream) {
+  if (((uintptr_t)packed & 15) != 0) return (int)cudaErrorInvalidValue;
   if (n_rows > 0) {
     long long blocks = (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
     const long long cap = 132LL * 64;

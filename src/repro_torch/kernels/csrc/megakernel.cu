@@ -181,9 +181,10 @@ int launch(const StepArgs& a, int warps, cudaStream_t stream) {
 
 }  // namespace
 
-// Factorized mode: codes int64 [E], offsets int32 [N+1], u f32 [B, 2],
-// 1 <= dmax <= 32 * kMaxSubSlots. overflow_out[q]: an emitting factorized
-// lane whose cur or prev has more than dmax neighbors (false elsewhere).
+// packed int32 [C, 256], 16-byte aligned. Factorized mode: codes int64
+// [E], offsets int32 [N+1], u f32 [B, 2], 1 <= dmax <= 32 * kMaxSubSlots.
+// overflow_out[q]: an emitting factorized lane whose cur or prev has more
+// than dmax neighbors (false elsewhere).
 extern "C" int repro_fused_rewalk_step(
     const uint32_t* packed, const uint32_t* widths, const uint32_t* a_hi,
     const uint32_t* a_lo, const uint32_t* epoch, long long n_chunks, int k_window,
@@ -195,7 +196,8 @@ extern "C" int repro_fused_rewalk_step(
     bool* overflow_out, long long b, void* stream) {
   if (factorized && (dmax <= 0 || dmax > 32 * repro::kMaxSubSlots))
     return (int)cudaErrorInvalidValue;
-  if (n_chunks <= 0 || k_window <= 0) return (int)cudaErrorInvalidValue;
+  if (n_chunks <= 0 || k_window <= 0 || ((uintptr_t)packed & 15) != 0)
+    return (int)cudaErrorInvalidValue;
   if (b <= 0) return (int)cudaGetLastError();
   const StepArgs a{packed, widths, a_hi, a_lo, epoch, n_chunks, k_window, lo, hi, ft, want,
                    cur, prev, pend_nxt, pend_hit, is_prefix, u, codes, offsets, ext_nxt,

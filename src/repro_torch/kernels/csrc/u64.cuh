@@ -1,5 +1,5 @@
-// Device functions shared by the port's four Hopper kernels (sm_90a):
-// Szudzik pair, exact unpair, and a warp-wide FOR chunk decode.
+// Code shared by the port's Hopper kernels (sm_90a): Szudzik pair, exact
+// unpair, a warp-wide FOR chunk decode, and a host-side grid size.
 //
 // The TPU kernels emulate u64 arithmetic with (hi, lo) u32 pairs and 16-bit
 // limb products because the TPU has no 64-bit integers. Hopper has native
@@ -8,6 +8,7 @@
 // repro_torch/_u64.py) and are un-biased on load.
 #pragma once
 
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace repro {
@@ -49,32 +50,58 @@ __device__ __forceinline__ void szudzik_unpair(u64 z, u64& x, u64& y) {
 // owns codes 4L..4L+3. Width 8: word L holds the lane's four deltas; width
 // 16: words 2L, 2L+1; width 32 (and any other value but 8, 16, 64, as the
 // reference's select does): words 4L..4L+3; width 64: raw (hi, lo) words i
-// and 128+i. The prefix sum of the deltas is exact in u64: a per-lane sum
-// then a warp inclusive scan with __shfl_up_sync; the anchor is added mod
-// 2^64. Returns the four raw (un-biased) codes in out[].
-__device__ __forceinline__ void decode_chunk_warp(const uint32_t* __restrict__ row,
-                                                  uint32_t width, uint32_t a_hi,
-                                                  uint32_t a_lo, int lane,
-                                                  u64 out[kCodesPerLane]) {
-  const int base = lane * kCodesPerLane;
+// and 128+i. A lane's words go to w[8]: w[0] (width 8), w[0..1] (width
+// 16), w[0..3] (width 32), or the hi words in w[0..3] and the lo words in
+// w[4..7] (width 64); the other entries are 0.
+constexpr int kLaneWords = 8;
+
+// A lane's words with one vector load a class (rows 16-byte aligned: the
+// C entries refuse packed words that are not): a u32 (width 8), a uint2
+// (16), a uint4 (32), two uint4 (64).
+__device__ __forceinline__ void chunk_words(const uint32_t* __restrict__ row,
+                                                uint32_t width, int lane,
+                                                uint32_t (&w)[kLaneWords]) {
+#pragma unroll
+  for (int j = 0; j < kLaneWords; ++j) w[j] = 0;
+  if (width == 8) {
+    w[0] = __ldg(row + lane);
+  } else if (width == 16) {
+    const uint2 a = __ldg(reinterpret_cast<const uint2*>(row) + lane);
+    w[0] = a.x;
+    w[1] = a.y;
+  } else {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(row) + lane);
+    w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+    if (width == 64) {
+      const uint4 b = __ldg(reinterpret_cast<const uint4*>(row + kChunk) + lane);
+      w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+    }
+  }
+}
+
+// A lane's four raw (un-biased) codes from its words. The prefix sum of the
+// deltas is exact in u64: a per-lane sum then a warp inclusive scan with
+// __shfl_up_sync (every lane of the warp takes part); the anchor is added
+// mod 2^64.
+__device__ __forceinline__ void decode_chunk_words(const uint32_t (&w)[kLaneWords],
+                                                   uint32_t width, uint32_t a_hi,
+                                                   uint32_t a_lo, int lane,
+                                                   u64 out[kCodesPerLane]) {
   if (width == 64) {
 #pragma unroll
-    for (int j = 0; j < kCodesPerLane; ++j)
-      out[j] = ((u64)row[base + j] << 32) | (u64)row[kChunk + base + j];
+    for (int j = 0; j < kCodesPerLane; ++j) out[j] = ((u64)w[j] << 32) | (u64)w[4 + j];
     return;
   }
   u64 d[kCodesPerLane];
   if (width == 8) {
-    uint32_t w = row[lane];
 #pragma unroll
-    for (int j = 0; j < kCodesPerLane; ++j) d[j] = (w >> (8 * j)) & 0xFFu;
+    for (int j = 0; j < kCodesPerLane; ++j) d[j] = (w[0] >> (8 * j)) & 0xFFu;
   } else if (width == 16) {
-    uint32_t w0 = row[2 * lane], w1 = row[2 * lane + 1];
-    d[0] = w0 & 0xFFFFu; d[1] = w0 >> 16;
-    d[2] = w1 & 0xFFFFu; d[3] = w1 >> 16;
+    d[0] = w[0] & 0xFFFFu; d[1] = w[0] >> 16;
+    d[2] = w[1] & 0xFFFFu; d[3] = w[1] >> 16;
   } else {
 #pragma unroll
-    for (int j = 0; j < kCodesPerLane; ++j) d[j] = row[base + j];
+    for (int j = 0; j < kCodesPerLane; ++j) d[j] = w[j];
   }
   u64 local[kCodesPerLane];
   u64 acc = 0;
@@ -89,6 +116,36 @@ __device__ __forceinline__ void decode_chunk_warp(const uint32_t* __restrict__ r
   const u64 prefix = (((u64)a_hi << 32) | (u64)a_lo) + (incl - acc);
 #pragma unroll
   for (int j = 0; j < kCodesPerLane; ++j) out[j] = prefix + local[j];
+}
+
+// Load and decode chunk `row` (kernels 3 and 6): returns the lane's four
+// raw codes in out[].
+__device__ __forceinline__ void decode_chunk_warp(const uint32_t* __restrict__ row,
+                                                  uint32_t width, uint32_t a_hi,
+                                                  uint32_t a_lo, int lane,
+                                                  u64 out[kCodesPerLane]) {
+  uint32_t w[kLaneWords];
+  chunk_words(row, width, lane, w);
+  decode_chunk_words(w, width, a_hi, a_lo, lane, out);
+}
+
+// Host side: the card's resident blocks of `kernel` at `threads` a block
+// (SMs x blocks an SM from the occupancy calculator), looked up once a
+// device into the caller's `cache` (0 until looked up). The lookups cost
+// host time, and the small kernels are launched thousands of times a run.
+constexpr int kMaxDevices = 64;
+
+template <class Kernel>
+long long resident_blocks(Kernel kernel, int threads, int (&cache)[kMaxDevices]) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < kMaxDevices && cache[dev] > 0) return cache[dev];
+  int sms = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  const int blocks = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  if (dev < kMaxDevices) cache[dev] = blocks;
+  return blocks;
 }
 
 }  // namespace repro

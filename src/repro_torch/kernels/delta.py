@@ -54,10 +54,18 @@ def decode_rows_plain(packed, widths, a_hi, a_lo, rows) -> torch.Tensor:
     return out
 
 
+def packed_rows(packed, name: str) -> torch.Tensor:
+    """`packed` as the kernels take it: int32 [C, WORDS] on the card with
+    16-byte aligned rows (a lane loads its words of a chunk as one vector)."""
+    packed = require(packed, torch.int32, f"{name} packed")
+    if packed.dim() != 2 or packed.shape[1] != WORDS or packed.data_ptr() % 16:
+        raise ValueError(f"{name}: packed must be [C, {WORDS}] with 16-byte "
+                         "aligned rows")
+    return packed
+
+
 def decode_rows_cuda(packed, widths, a_hi, a_lo, rows) -> torch.Tensor:
-    packed = require(packed, torch.int32, "delta_decode packed")
-    if packed.dim() != 2 or packed.shape[1] != WORDS:
-        raise ValueError(f"delta_decode: packed must be [C, {WORDS}]")
+    packed = packed_rows(packed, "delta_decode")
     widths = require(widths, torch.int32, "delta_decode widths")
     a_hi = require(a_hi, torch.int32, "delta_decode anchors_hi")
     a_lo = require(a_lo, torch.int32, "delta_decode anchors_lo")

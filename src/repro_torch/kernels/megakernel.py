@@ -50,7 +50,7 @@ import torch
 from repro_torch.core import pairing
 from repro_torch.kernels import intersect
 from repro_torch.kernels._launch import call, require
-from repro_torch.kernels.delta import CHUNK, decode_rows_plain
+from repro_torch.kernels.delta import CHUNK, decode_rows_plain, packed_rows
 
 BACKENDS = ("cuda", "torch", "ref")
 
@@ -222,9 +222,9 @@ def fused_step_plain(store, s: FusedStep):
 def fused_step_cuda(store, s: FusedStep):
     """Launch the kernel (one warp per lane) -> (nxt, code, overflow)."""
     i64, i32 = torch.int64, torch.int32
-    cols = [require(t, i32, "fused_rewalk_step store")
-            for t in (store.packed, store.widths, store.anchors_hi,
-                      store.anchors_lo, store.epoch)]
+    cols = [packed_rows(store.packed, "fused_rewalk_step")] + [
+        require(t, i32, "fused_rewalk_step store")
+        for t in (store.widths, store.anchors_hi, store.anchors_lo, store.epoch)]
     lane = [require(t, dt, "fused_rewalk_step lane operand") for t, dt in (
         (s.lo, i64), (s.hi, i64), (s.ft, i64), (s.want, i32), (s.cur, i64),
         (s.prev, i64), (s.pend_nxt, i64), (s.pend_hit, torch.bool),

@@ -12,9 +12,10 @@ import torch
 
 from repro_torch.core.pairing import szudzik_unpair
 from repro_torch.kernels._launch import call, require
-from repro_torch.kernels.delta import CHUNK, decode_rows_plain
+from repro_torch.kernels.delta import CHUNK, decode_rows_plain, packed_rows
 
 QUERY_SLAB = 4096   # queries per plain-version slab
+MAX_WINDOW = 32     # the kernel's K bound: chunk j's scalars sit in lane j
 
 
 def _search_plain_slab(packed, widths, a_hi, a_lo, chunk_idx, f_targets):
@@ -48,14 +49,19 @@ def find_next_packed_plain(packed, widths, a_hi, a_lo, chunk_idx, f_targets):
 
 
 def find_next_packed_cuda(packed, widths, a_hi, a_lo, chunk_idx, f_targets):
-    packed = require(packed, torch.int32, "find_next_packed packed")
+    """The kernel: as `find_next_packed_plain`, for 1 <= K <= MAX_WINDOW
+    (raised before any work on the card) and 16-byte aligned packed rows."""
+    q, k = chunk_idx.shape
+    if not 1 <= k <= MAX_WINDOW:
+        raise ValueError(f"find_next_packed: the kernel takes 1 <= K <= {MAX_WINDOW} "
+                         f"chunks a query, got K = {k}")
+    packed = packed_rows(packed, "find_next_packed")
     widths = require(widths, torch.int32, "find_next_packed widths")
     a_hi = require(a_hi, torch.int32, "find_next_packed anchors_hi")
     a_lo = require(a_lo, torch.int32, "find_next_packed anchors_lo")
     chunk_idx = require(chunk_idx.to(torch.int32), torch.int32,
                         "find_next_packed chunk_idx")
     f_targets = require(f_targets, torch.int64, "find_next_packed f_targets")
-    q, k = chunk_idx.shape
     if f_targets.shape != (q,):
         raise ValueError("find_next_packed: f_targets must be [Q]")
     v = torch.empty((q,), dtype=torch.int64, device=packed.device)

@@ -19,7 +19,7 @@ from repro_torch.core import StreamingGraph, WalkConfig, generate_corpus
 from repro_torch.core import pairing
 from repro_torch.core.packed_store import encode_codes
 from repro_torch.core.update import WalkEngine
-from repro_torch.kernels import (delta, intersect, megakernel, ops, range_search, sgns,
+from repro_torch.kernels import (_launch, delta, intersect, megakernel, ops, range_search, sgns,
                                  szudzik)
 
 pytestmark = pytest.mark.cuda
@@ -77,6 +77,16 @@ def test_decode_kernel_matches_plain(dev):
     perm = torch.randperm(rows.shape[0], device=dev)
     assert torch.equal(delta.decode_rows_cuda(packed, widths, a_hi, a_lo, perm),
                        got[perm])
+    # packed rows off a 16-byte boundary are refused by the wrapper and the
+    # C entry: the kernels load a lane's words of a chunk as one vector
+    off = torch.zeros(packed.numel() + 1, dtype=torch.int32, device=dev)[1:].view(packed.shape)
+    off.copy_(packed)
+    with pytest.raises(ValueError, match="16-byte"):
+        delta.decode_rows_cuda(off, widths, a_hi, a_lo, rows)
+    out = torch.empty((rows.shape[0], delta.CHUNK), dtype=torch.int64, device=dev)
+    with pytest.raises(RuntimeError, match="repro_delta_decode"):
+        _launch.call("repro_delta_decode", dev, off, widths, a_hi, a_lo, rows, out,
+                     rows.shape[0])
 
 
 def test_search_kernel_matches_plain(dev):
@@ -99,6 +109,127 @@ def test_search_kernel_matches_plain(dev):
     pv, pf = range_search.find_next_packed_plain(packed, widths, a_hi, a_lo, cidx, ft)
     assert torch.equal(kf, pf) and torch.equal(kv, pv)
     assert bool(kf[1::2].all()) and not bool(kf[::2].any())
+
+
+# ------------------------------------------- kernels 1 and 4: edge cases
+
+PAIR_EDGES = np.array([[0, 2**32 - 1, 2**32 - 1, 0], [0, 2**32 - 1, 0, 2**32 - 1]])
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, (1 << 20) + 1])
+@pytest.mark.parametrize("ox,oy", [(0, 0), (1, 1), (1, 0), (0, 1)])
+def test_pair_kernel_lengths_and_offsets(dev, n, ox, oy):
+    """Lengths 0-3 and 2^20+1 (odd), operands that are views starting at an
+    odd element (not 16-byte aligned), alone or both, with the operands 0
+    and 2^32-1 at both ends (an odd last element is thread 0's); an output
+    off a 16-byte boundary is refused."""
+    rng = np.random.default_rng(n)
+    x, y = rng.integers(0, 2**32, size=(2, n))
+    e = min(n, 4)
+    x[:e], y[:e] = PAIR_EDGES[0, :e], PAIR_EDGES[1, :e]
+    x[n - e:], y[n - e:] = PAIR_EDGES[0, :e], PAIR_EDGES[1, :e]
+    bx = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    by = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    bx[ox:ox + n], by[oy:oy + n] = torch.from_numpy(x), torch.from_numpy(y)
+    xt, yt = bx[ox:ox + n], by[oy:oy + n]
+    assert n == 0 or (xt.data_ptr() % 16, yt.data_ptr() % 16) == (8 * ox, 8 * oy)
+    want = pairing.szudzik_pair(xt, yt)
+    assert torch.equal(szudzik.pair_cuda(xt, yt), want)
+    if n:   # (an empty view has no data pointer to be off a boundary)
+        ob = torch.full((n + 1,), -7, dtype=torch.int64, device=dev)
+        with pytest.raises(RuntimeError, match="repro_szudzik_pair"):
+            _launch.call("repro_szudzik_pair", dev, xt, yt, ob[1:], n)
+        assert bool((ob == -7).all())
+
+
+def _search_store(dev):
+    """Sorted Szudzik codes in 21 chunks of 128 that cover the width
+    classes 8, 16, 32 and 64, codes with f < v (the y^2 + x branch, up to v
+    = 2^32-1), and targets f whose codes span two chunks -> (packed args, the codes,
+    {class: chunk ids})."""
+    rng = np.random.default_rng(5)
+    ar = np.arange(128)
+    parts = {
+        "w8": [(np.full(128, 5000 + 200 * i), ar) for i in range(4)],
+        "two_chunks": [(np.full(256, 70_000), np.arange(256))],
+        "w16": [(np.full(128, 1_000_000 + 10 * i), ar * 300) for i in range(4)],
+        "w32": [(2_000_000 + 4 * np.arange(512), rng.integers(0, 1000, 512))],
+        "f_below_v": [(ar, np.full(128, 3_000_000 + i)) for i in range(2)],
+        "w64": [(10**9 + 1000 * np.arange(512), rng.integers(0, 1 << 18, 512))],
+        "f_below_top_v": [(ar, np.full(128, 2**32 - 1))],       # codes near 2^64
+    }
+    codes, chunks, c0 = [], {}, 0
+    for name, pieces in parts.items():
+        f = np.concatenate([p[0] for p in pieces])
+        v = np.concatenate([p[1] for p in pieces])
+        z = pairing.szudzik_pair(torch.from_numpy(f), torch.from_numpy(v))
+        codes.append(torch.sort(z).values)
+        chunks[name] = list(range(c0, c0 + f.shape[0] // 128))
+        c0 += f.shape[0] // 128
+    codes = torch.cat(codes).to(dev)
+    assert torch.equal(codes, torch.sort(codes).values)
+    packed, widths, a_hi, a_lo, _, _ = encode_codes(codes)
+    assert [int(widths[c[0]]) for c in chunks.values()] == [8, 8, 16, 32, 8, 64, 8]
+    return (packed, widths, a_hi, a_lo), codes, chunks
+
+
+def _check_search(args, cidx, ft):
+    got = range_search.find_next_packed_cuda(*args, cidx, ft)
+    want = range_search.find_next_packed_plain(*args, cidx, ft)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    return got
+
+
+@pytest.mark.parametrize("k", [1, 8, 32])
+def test_search_kernel_every_width_and_k(dev, k):
+    """K = 1, 8 and 32 windows over chunks of every width class; targets
+    from a random chunk of the window, a tenth of them misses. Q = 100,003
+    is odd, so not a multiple of the grid's warps, and above them: every
+    warp runs its pipeline over several queries and the last turn is
+    partial."""
+    args, codes, _ = _search_store(dev)
+    rng = np.random.default_rng(k)
+    n_chunks, q = args[0].shape[0], 100_003
+    cidx = torch.from_numpy(rng.integers(0, n_chunks, size=(q, k))).to(dev, torch.int32)
+    pick = torch.from_numpy(rng.integers(0, k, size=q)).to(dev)
+    lane = torch.from_numpy(rng.integers(0, 128, size=q)).to(dev)
+    row = cidx[torch.arange(q, device=dev), pick].to(torch.int64)
+    ft, _ = pairing.szudzik_unpair(codes[row * 128 + lane])
+    ft[::10] = 123_456_789                                    # no such f
+    _, found = _check_search(args, cidx, ft)
+    assert bool(found[1::10].all()) and not bool(found[::10].any())
+
+
+def test_search_kernel_edge_cases(dev):
+    """A hit only at k = K-1, no hit at all, a target whose codes lie in two
+    chunks (the first in the window wins, with its largest v), f < v codes,
+    and Q = 0."""
+    args, codes, chunks = _search_store(dev)
+    k = 8
+    others = chunks["w8"] + chunks["w16"] + chunks["w32"]          # 12 chunks
+    rows, fts = [], []
+    for i, c in enumerate(chunks["w64"]):                         # hit only at K-1
+        rows.append(others[:k - 1] + [c])
+        fts.append(10**9 + 1000 * (128 * i + 37))
+    for c in chunks["f_below_v"] + chunks["f_below_top_v"]:
+        rows.append(others[:k - 1] + [c])
+        fts.append(77)
+    rows += [others[:k], others[4:4 + k]]                         # no hit at all
+    fts += [70_000, 10**9 + 1000 * 37]
+    a, b = chunks["two_chunks"]
+    rows += [[a, b] + others[:k - 2], [b, a] + others[:k - 2],    # first wins
+             others[:3] + [b, a] + others[3:k - 2]]
+    fts += [70_000] * 3
+    cidx = torch.tensor(rows, dtype=torch.int32, device=dev)
+    ft = torch.tensor(fts, dtype=torch.int64, device=dev)
+    v, found = _check_search(args, cidx, ft)
+    n_late = len(chunks["w64"]) + len(chunks["f_below_v"]) + len(chunks["f_below_top_v"])
+    assert bool(found[:n_late].all())
+    assert not bool(found[n_late:n_late + 2].any())
+    assert v[n_late + 2:].tolist() == [127, 255, 255]
+    empty = torch.zeros((0, k), dtype=torch.int32, device=dev)
+    v0, f0 = _check_search(args, empty, torch.zeros(0, dtype=torch.int64, device=dev))
+    assert v0.shape == (0,) and f0.shape == (0,)
 
 
 def test_engine_on_card_equals_cpu(dev):

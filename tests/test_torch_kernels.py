@@ -3,6 +3,7 @@ FINDNEXT) against the JAX package's Pallas kernels run in interpret mode,
 on the same packed inputs, bit for bit."""
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import repro.core  # noqa: F401
@@ -12,7 +13,7 @@ from repro.kernels import range_search as jrs
 from repro_torch._u64 import from_u32_numpy, from_u64_numpy, to_u32_numpy, to_u64_numpy
 from repro_torch.core import packed_store
 from repro_torch.core.pairing import szudzik_pair
-from repro_torch.kernels import delta, ops, range_search
+from repro_torch.kernels import _build, delta, ops, range_search
 
 
 def _codes_every_width(seed=1):
@@ -90,6 +91,26 @@ def test_search_plain_matches_pallas_interpret():
     tv2, tf2 = range_search.find_next_packed_plain(*t, torch.from_numpy(cidx),
                                                    torch.from_numpy(ft.astype(np.int64)))
     assert torch.equal(tv, tv2) and torch.equal(tfound, tf2)
+
+
+def test_search_kernel_wrapper_bounds_k_before_device_work(monkeypatch):
+    """The kernel holds chunk j's scalars in lane j, so its wrapper takes
+    K <= 32 and raises on K = 33 before it touches the card or builds the
+    kernels; at K = 32 it goes on to its operand checks (which refuse CPU
+    tensors)."""
+    def no_build():
+        raise AssertionError("the kernel library was reached")
+
+    monkeypatch.setattr(_build, "lib", no_build)
+    packed = torch.zeros((4, delta.WORDS), dtype=torch.int32)
+    meta = [torch.zeros(4, dtype=torch.int32)] * 3
+    ft = torch.zeros(3, dtype=torch.int64)
+    with pytest.raises(ValueError, match="K = 33"):
+        range_search.find_next_packed_cuda(packed, *meta, torch.zeros((3, 33), dtype=torch.int32),
+                                           ft)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        range_search.find_next_packed_cuda(packed, *meta, torch.zeros((3, 32), dtype=torch.int32),
+                                           ft)
 
 
 def test_candidate_chunks_matches_reference():

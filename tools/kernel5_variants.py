@@ -212,10 +212,14 @@ def rows_on(graph, dev, gen):
     r = torch.randint(0, 1 << 30, (ROWS,), generator=gen, device=dev) % deg.clamp(min=1)
     prev = torch.where(deg > 0, graph.codes[off[v] + r] & 0xFFFFFFFF, v)
     u = torch.rand((ROWS, 2), generator=gen, device=dev)
-    dv, dp = deg.clamp(max=DMAX), (off[prev + 1] - off[prev]).clamp(max=DMAX)
-    # each segment entry, four offsets, v, prev, u read once; nxt, found,
-    # overflow written once
-    nbytes = 8.0 * float((dv + dp).sum()) + ROWS * (16 + 16 + 8 + 10)
+    # each segment (its entries and two offsets) read once however many
+    # rows read it; a row's v, prev and u read once; nxt, found, overflow
+    # written once
+    seen = torch.zeros(N, dtype=torch.bool, device=dev)
+    seen[v] = True
+    seen[prev] = True
+    seg = (off[1:] - off[:-1]).clamp(max=DMAX)[seen]
+    nbytes = float((seg * 8 + 8).sum()) + ROWS * (16 + 8 + 10)
     return v, prev, u, nbytes, float(deg.float().mean())
 
 
