@@ -22,6 +22,22 @@ every phase passed):
      bit for bit, the first batch's loss per pair must be 6 ln 2 and leave
      the input table unchanged (the output table starts at 0); one more
      batch under torch.profiler
+ 3c. full width, serving: a `WalkQueryService` over phase 3b's maintainer
+     (`engine_view()`, a pending block live): next_vertices on 2^16
+     queries (kernel = plain backend, = the plain pair, unpair and
+     FINDNEXT on a CPU copy of the overlay, every query on a stored walk
+     found), walks_of on 1,024 vertices at capacity 1,024, the overlay
+     walk matrix, neighborhoods and embedding neighbors (k = 10, f32 with
+     TF32 off, card ids = CPU ids) — the serve path,
+     counts read just after it, kernels 1-4 launched; a pin, then a
+     merge, two more batches and a merge: the pinned answers stay
+     bit-identical, the walk matrix = the post-merge traverse and = the
+     merged store read with the plain unpair, walks_of = the post-merge
+     segments as sets (plain decode and unpair); ppr_rows on an
+     engine of its own at 2^15 vertices (the dense [n, n] table), built
+     twice bit-identical and = the CPU's within rtol 1e-5; per query kind
+     the synced time a query, batched (B = 1,024) and per call; the SLO
+     summary and the service's counters
   4. full width, `wharf-stream` order 2 (node2vec, factorized, dmax 128)
      at 2^18 vertices, insert-only batches: one corpus, then the batches
      unfused and again fused from the same corpus and keys; the two runs'
@@ -46,9 +62,13 @@ every phase passed):
      they replaced: the two neighbor windows built in torch (plus, for
      kernel 5, the windowed kernel, which no main path launches any more)
 Phase 2 also runs a small maintainer on the card against the CPU and
-against a plain engine. Each phase prints one JSON line.
+against a plain engine, and the order-1 stream with `WalkConfig(metrics=
+True)` on the card: its state equals the plain run's, its counters equal
+the CPU's, and the metrics-OFF run calls the plain step loop's kernels;
+it prints the exported summary. Each phase prints one JSON line.
 """
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -66,12 +86,17 @@ from repro_torch.convert import state_to_numpy  # noqa: E402
 from repro_torch.core import StreamingGraph, WalkConfig, generate_corpus  # noqa: E402
 from repro_torch.core import pairing  # noqa: E402
 from repro_torch.core.corpus import walk_start_vertex  # noqa: E402
+from repro_torch.core.packed_store import CHUNK  # noqa: E402
 from repro_torch.core.update import WalkEngine  # noqa: E402
+from repro_torch.core.store import PAD_EPOCH  # noqa: E402
 from repro_torch.core.utils import seg_searchsorted  # noqa: E402
 from repro_torch.core.walkers import WalkModel  # noqa: E402
 from repro_torch.downstream import EmbeddingMaintainer, MaintainerConfig  # noqa: E402
 from repro_torch.kernels import _build, delta, intersect, megakernel, ops  # noqa: E402
 from repro_torch.kernels import range_search, sgns, szudzik  # noqa: E402
+from repro_torch.core import update  # noqa: E402
+from repro_torch.obs import export, slo  # noqa: E402
+from repro_torch.serve import WalkQueryService, batched  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12      # H100 float32 outside the tensor cores
@@ -107,6 +132,14 @@ MAINT = dict(dim=128, window=5, n_negative=5, lr=0.01, skip_stale_prefix=True,
 MAINT_REDUCED = dict(REDUCED, max_pairs="0 (every live pair: ~2.6M affected walks x 770 "
                      "pairs a batch) -> 2^20 pairs a batch (1,362 walks)",
                      n_batches="8 timed batches and 1 profiled batch")
+# phase 3c: the service over the maintainer's engine; PPR on its own engine
+SERVE = dict(next_queries=1 << 16, batch=1024, walks_of_capacity=1024, hops=2,
+             k=10, pin_traverse_walks=1 << 14, per_call_reps=16, extra_batches=2,
+             ppr_vertices=1 << 15, restart_prob=0.2, ppr_rtol=1e-5)
+SERVE_REDUCED = dict(MAINT_REDUCED, ppr_vertices=(
+    "2^18 -> 2^15 for ppr_rows only: the reference's dense [n, n] f32 table is "
+    "275 GB at 2^18 and 4.3 GB at 2^15 (its own engine, the same config and a "
+    "batch of 1,250 inserts and 250 deletes, the per-vertex rate of CONFIG)"))
 SGNS_LOSS_RTOL = 1e-5
 SGNS_GRAD_TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -263,8 +296,8 @@ def phase_small_e2e(dev):
 
 def phase_small_maintainer(dev):
     """The maintainer on the card against the same maintainer on the CPU,
-    from the same tables, and against a plain engine on the same update
-    keys: the engines bit for bit, the pair and affected counts equal, the
+    from the same key (the card draws the CPU's tables bit for bit), and
+    against a plain engine on the same update keys: the engines bit for bit, the pair and affected counts equal, the
     summed loss within rtol 1e-5 and the tables within rtol 2e-4 / atol
     1e-5 (the reference's tolerance; the card's scatter-add uses atomics).
     Under a pair budget, as at full width (the lane subsample): training
@@ -285,10 +318,10 @@ def phase_small_maintainer(dev):
         g = StreamingGraph.from_edges(src, dst, n, 1 << 15, device=d)
         store = generate_corpus(jr.PRNGKey(1, d), g, wcfg)
         mt = EmbeddingMaintainer(graph=g, store=store, cfg=mcfg, key=jr.PRNGKey(3, d))
-        if d.type == "cuda":   # the CPU run's tables (normal's log1p differs by ulps)
-            mt.load_state(mt.state._replace(
-                params={k: v.to(d) for k, v in runs[0]["init"].items()}))
         init = {k: v.clone() for k, v in mt.params.items()}
+        if d.type == "cuda":   # `normal` on the card = on the CPU, bit for bit
+            for k, v in init.items():
+                assert torch.equal(v.cpu(), runs[0]["init"][k]), f"initial {k} table"
         m = mt.run_stream(jr.PRNGKey(2, d), ins[0], ins[1], dels[0], dels[1],
                           train_key=jr.PRNGKey(5, d))
         plain = WalkEngine(graph=g, store=store, cfg=wcfg, rewalk_capacity=n * 4,
@@ -314,6 +347,55 @@ def phase_small_maintainer(dev):
     log("small_maintainer", ok=True, n_vertices=n, batches=6, max_pairs=4096,
         n_pairs=pairs_d.tolist(), n_affected=aff_d.tolist(),
         loss_rel_diff=float(((loss_d - loss_c).abs() / loss_c.abs()).max()))
+
+
+def phase_small_metrics(dev):
+    """The order-1 stream with `WalkConfig(metrics=True)` on the card: its
+    state equals the plain (metrics OFF) run's, its counters the CPU's;
+    the OFF run launches exactly the kernels of the plain step loop
+    (`update.stream_step_aux` without metrics), in count."""
+    rng = np.random.default_rng(5)
+    n = 512
+    src, dst = rng.integers(0, n, size=(2, 6000))
+    ins = rng.integers(0, n, size=(2, 6, 60))
+    dels = rng.integers(0, n, size=(2, 6, 20))
+
+    def engine(d, metrics):
+        cfg = WalkConfig(n_walks_per_vertex=4, length=16, metrics=metrics)
+        g = StreamingGraph.from_edges(src, dst, n, 1 << 15, device=d)
+        return WalkEngine(graph=g, store=generate_corpus(jr.PRNGKey(1, d), g, cfg),
+                          cfg=cfg, rewalk_capacity=n * 4, max_pending=4)
+
+    out, launches = {}, {}
+    for name, d, metrics in (("off", dev, False), ("on", dev, True),
+                             ("on_cpu", torch.device("cpu"), True)):
+        eng = engine(d, metrics)
+        ops.reset_launches()
+        eng.run_stream(jr.PRNGKey(2, d), ins[0], ins[1], dels[0], dels[1])
+        launches[name] = dict(ops.launches)
+        out[name] = eng
+    plain = engine(dev, False)
+    keys = jr.split(jr.PRNGKey(2, dev), ins.shape[1])
+    state = plain.state
+    ops.reset_launches()
+    for i in range(ins.shape[1]):
+        state, _ = update.stream_step_aux(
+            state, keys[i], *(torch.from_numpy(a[i]).to(dev) for a in
+                              (ins[0], ins[1], dels[0], dels[1])),
+            plain.cfg, plain.rewalk_capacity, plain._mav_capacity(),
+            plain.max_pending, plain.merge_policy, plain.merge_impl)
+    launches["plain"] = dict(ops.launches)
+    assert launches["off"] == launches["plain"], launches
+    a, b = state_to_numpy(out["off"].state), state_to_numpy(out["on"].state)
+    for k in a:
+        if not np.array_equal(a[k], b[k]):
+            raise AssertionError(f"metrics ON != OFF in {k}")
+    summ = export.summary(out["on"].metrics)
+    assert summ == export.summary(out["on_cpu"].metrics), "metrics: card != CPU"
+    assert summ["steps"] == ins.shape[1] and summ["staleness"]["audit"]["invalid"] == 0
+    log("small_metrics", ok=True, n_vertices=n, batches=ins.shape[1],
+        state_equals_metrics_off=True, counters_equal_cpu=True,
+        launches_off=launches["off"], launches_on=launches["on"], summary=summ)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -492,7 +574,279 @@ def phase_maintainer(dev, host_state):
                launches=launches, profiled_batch=prof)
     log("reduced_maintainer", **MAINT_REDUCED)
     log("maintainer", **res)
-    return res, kept
+    return res, kept, mt
+
+
+# ---------------------------------------------------------------- phase 3c
+
+
+def timed_queries(svc, kind: str, batch_args, call_args) -> dict:
+    """Synced host time a query of one kind: one batched call of B queries
+    (after a warm-up call of the same shape), then `per_call_reps` single
+    calls -> {"batched_us_per_query", "per_call_us"}."""
+    fn = getattr(svc, kind)
+    fn(*batch_args)
+    _, t_b = sync_time(lambda: fn(*batch_args))
+    times = []
+    for args in call_args:
+        _, t = sync_time(lambda: fn(*args))
+        times.append(t)
+    b = SERVE["batch"]
+    return {"batched_us_per_query": t_b / b * 1e6, "batch": b,
+            "per_call_us": float(np.mean(times)) * 1e6, "calls": len(times)}
+
+
+def pinned_answers(svc, snap, q, verts, w, start) -> dict:
+    """What a pinned snapshot answers, read anew (no cache): FINDNEXT, the
+    walks of some vertices, and the overlay's own traverse of walks w."""
+    nxt, found = svc.next_vertices(*q, snapshot=snap)
+    return {"next": nxt, "found": found,
+            "walks_of": svc.walks_of(verts, capacity=SERVE["walks_of_capacity"],
+                                     snapshot=snap),
+            "traverse": snap.overlay.traverse(w, start, svc.engine.store.length - 1)}
+
+
+def row_sets(rows) -> list:
+    return [set(r[r >= 0].tolist()) for r in rows.cpu()]
+
+
+def overlay_on_cpu(ov):
+    """The overlay's tensors copied to the CPU, where every read takes the
+    kernels' plain versions (pair, unpair and the packed FINDNEXT)."""
+    st = ov.base
+    base = st.replace(**{f.name: getattr(st, f.name).cpu()
+                         for f in dataclasses.fields(st)
+                         if torch.is_tensor(getattr(st, f.name))})
+    return ov.replace(base=base, **{f.name: getattr(ov, f.name).cpu()
+                                    for f in dataclasses.fields(ov)
+                                    if f.name != "base"})
+
+
+def walk_matrix_plain(st, slab: int = 1 << 24):
+    """The walk matrix read off a merged store, with the plain unpair: the
+    entry of slot f = w * l + p is owned by walk w's vertex at position p.
+    Every slot must hold exactly one live entry."""
+    t = st.n_walks * st.length
+    assert st.size == t, (st.size, t)
+    out = torch.full((t,), -1, dtype=torch.int64, device=st.device)
+    for s in range(0, t, slab):
+        f, _ = szudzik.unpair_plain(st.code[s:s + slab])
+        assert bool(((f >= 0) & (f < t)).all()), "a merged code names no slot"
+        assert torch.equal(st.epoch[s:s + slab], st.slot_epoch[f]), \
+            "a merged entry is not live"
+        out[f] = st.owner[s:s + slab].to(torch.int64)
+    assert bool((out >= 0).all()), "a slot holds no entry after the merge"
+    return out.reshape(st.n_walks, st.length)
+
+
+def segment_walks_plain(st, verts):
+    """The walk ids of each vertex's segment in a merged store, -1 padded:
+    its chunks decoded by the plain FOR decode, its codes unpaired by the
+    plain unpair."""
+    lo, hi = st.offsets[verts].to(torch.int64), st.offsets[verts + 1].to(torch.int64)
+    idx = lo[:, None] + torch.arange(int((hi - lo).max()), device=lo.device)[None]
+    pos = idx.clamp(max=st.size - 1)
+    chunks, inv = torch.unique(pos // CHUNK, return_inverse=True)
+    codes = delta.decode_rows_plain(st.packed, st.widths, st.anchors_hi,
+                                    st.anchors_lo, chunks)[inv, pos % CHUNK]
+    f, _ = szudzik.unpair_plain(codes)
+    return torch.where(idx < hi[:, None], f // st.length, -1)
+
+
+def walks_of_vertices(eng, gen, cap: int):
+    """B vertices drawn at random among those whose every walk walks_of at
+    capacity `cap` returns: the base segment (live and stale entries) and
+    the pending rows (not dead) of the vertex both fit in `cap` (the
+    query's contract returns the first `cap` of each) -> (vertices,
+    vertices that fit, max base segment)."""
+    store, n = eng.store, eng.store.n_vertices
+    seg = (store.offsets[1:] - store.offsets[:-1]).to(torch.int64)
+    pend = eng.overlay()
+    owners = pend.owner[pend.epoch != PAD_EPOCH].to(torch.int64)
+    per_v = torch.bincount(owners, minlength=n)
+    fits = torch.nonzero((seg <= cap) & (per_v <= cap)).reshape(-1)
+    pick = torch.randperm(fits.numel(), generator=gen, device=fits.device)
+    return fits[pick[:SERVE["batch"]]].sort().values, int(fits.numel()), int(seg.max())
+
+
+def phase_serve(dev, mt):
+    """Phase 3c: a WalkQueryService over phase 3b's maintainer, pending
+    block live. The counts are set to 0 before the serve path (the live
+    queries of every kind and the pinned reads) and read just after it;
+    the checks against plain versions, merges and timings come after."""
+    c, s = CONFIG, SERVE
+    cap, b = s["walks_of_capacity"], s["batch"]
+    eng = mt.engine_view()
+    pending_at_first_query = eng.n_pending
+    assert pending_at_first_query >= 1, "no pending block is live"
+    svc = WalkQueryService(engine=eng)
+    n, n_w, length = eng.store.n_vertices, eng.cfg.n_walks_per_vertex, eng.store.length
+    n_walks = n * n_w
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2024)
+    verts, fitting, max_seg = walks_of_vertices(eng, gen, cap)
+    qw = torch.randint(0, n_walks, (s["next_queries"],), generator=gen, device=dev)
+    qp = torch.randint(0, length - 1, (s["next_queries"],), generator=gen, device=dev)
+    tw = torch.randint(0, n_walks, (s["pin_traverse_walks"],), generator=gen, device=dev)
+    collector = slo.install(slo.ServeSLO())
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launches()    # ---- the serve path, counted from here
+    wm, t_wm = sync_time(svc.walk_matrix)
+    q = (wm[qw, qp], qw, qp)
+    (nxt, found), t_next = sync_time(lambda: svc.next_vertices(*q))
+    wof, t_wof = sync_time(lambda: svc.walks_of(verts, capacity=cap))
+    nbh, t_nbh = sync_time(lambda: svc.neighborhoods(verts, hops=s["hops"]))
+    svc.set_embedding_table(mt.embeddings)
+    (e_ids, e_sc), t_emb = sync_time(lambda: svc.embedding_neighbors(verts, k=s["k"]))
+    snap, t_pin = sync_time(svc.pin)
+    pinned = pinned_answers(svc, snap, q, verts, tw, walk_start_vertex(tw, n_w))
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)   # ---- read just after it
+    for kname in ORDER1_KERNELS:
+        assert launches[kname] > 0, f"kernel {kname} was not launched on the serve path"
+
+    assert bool(found.all()), "a FINDNEXT on a stored walk missed"
+    assert torch.equal(nxt, wm[qw, qp + 1]), "next_vertices != the walk matrix"
+    plain = WalkQueryService(engine=eng, backend="torch")
+    pn, pf = plain.next_vertices(*q)
+    assert torch.equal(pn, nxt) and torch.equal(pf, found), \
+        "next_vertices: kernel != plain backend"
+    # one batch with the plain pair, unpair and FINDNEXT: a CPU copy
+    cpu_ov = overlay_on_cpu(eng.overlay())
+    (cn, cf), t_cpu_next = sync_time(lambda: batched.find_next_batch(
+        cpu_ov, *(x.cpu() for x in q), backend="torch"))
+    assert torch.equal(nxt.cpu(), cn) and torch.equal(found.cpu(), cf), \
+        "next_vertices: card != the plain versions on the CPU"
+    del cpu_ov, cn, cf
+    assert torch.equal(nbh, wm[(verts[:, None] * n_w + torch.arange(n_w, device=dev))
+                               .reshape(-1), :s["hops"] + 1].reshape(len(verts), n_w, -1)), \
+        "neighborhoods != a gather of the walk matrix"
+    table = mt.embeddings.cpu()
+    c_ids, c_sc = batched.embedding_topk(batched.normalize_rows(table),
+                                         verts.cpu(), s["k"])
+    assert torch.equal(e_ids.cpu(), c_ids), "embedding_neighbors: card ids != CPU ids"
+    emb_err = float((e_sc.cpu() - c_sc).abs().max())
+    assert emb_err <= 1e-5, emb_err
+    del table
+
+    # the post-merge answers of the pinned state
+    _, t_merge = sync_time(eng.merge)
+    w_all = torch.arange(n_walks, device=dev)
+    post, t_trav = sync_time(lambda: eng.store.traverse(
+        w_all, walk_start_vertex(w_all, n_w), length - 1))
+    assert torch.equal(post, wm), "overlay walk matrix != post-merge traverse"
+    del post
+    assert torch.equal(walk_matrix_plain(eng.store), wm), \
+        "overlay walk matrix != the merged store read with the plain unpair"
+    assert row_sets(wof) == row_sets(segment_walks_plain(eng.store, verts)), \
+        "walks_of != the post-merge segments"
+
+    # two more batches and a merge: the pinned answers stay bit-identical
+    g2 = torch.Generator(device=dev)
+    g2.manual_seed(2025)
+    key = jr.PRNGKey(1, dev)
+    nb = s["extra_batches"]
+    ins = [x.reshape(nb, -1) for x in uniform_pairs(g2, n, nb * c["batch_inserts"], dev)]
+    dels = [x.reshape(nb, -1) for x in uniform_pairs(g2, n, nb * c["batch_deletes"], dev)]
+    for i in range(nb):
+        eng.run_stream(jr.fold_in(key, c["n_batches"] + 1 + i), ins[0][i:i + 1],
+                       ins[1][i:i + 1], dels[0][i:i + 1], dels[1][i:i + 1])
+    eng.merge()
+    again = pinned_answers(svc, snap, q, verts, tw, walk_start_vertex(tw, n_w))
+    for k in pinned:
+        if not torch.equal(again[k], pinned[k]):
+            raise AssertionError(f"pinned {k} changed after {nb} batches and a merge")
+    pin_bytes = snap.nbytes
+    snap.release()
+    assert eng.pins_active == 0
+    del again, pinned, snap
+
+    # per query kind: synced time a query, batched (B) and per call
+    reps = s["per_call_reps"]
+    single = [([int(v)],) for v in verts[:reps].tolist()]
+    q1 = [(q[0][i:i + 1], q[1][i:i + 1], q[2][i:i + 1]) for i in range(reps)]
+    timing = {
+        "next_vertices": timed_queries(svc, "next_vertices",
+                                       tuple(x[:b] for x in q), q1),
+        "walks_of": timed_queries(svc, "walks_of", (verts, cap),
+                                  [(v, cap) for (v,) in single]),
+        "neighborhoods": timed_queries(svc, "neighborhoods", (verts, s["hops"]),
+                                       [(v, s["hops"]) for (v,) in single]),
+        "embedding_neighbors": timed_queries(svc, "embedding_neighbors",
+                                             (verts, s["k"]),
+                                             [(v, s["k"]) for (v,) in single]),
+    }
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    counters = svc.obs_counters()
+    del svc, plain, wm, eng
+    ppr = serve_ppr(dev, timing)
+    summ = collector.summary()
+    slo.uninstall()
+    res = dict(n_vertices=n, n_walks=n_walks,
+               pending_blocks_at_first_query=pending_at_first_query,
+               launches=launches, walk_matrix_s=t_wm, next_vertices_2p16_s=t_next,
+               walks_of_1024_s=t_wof, neighborhoods_1024_s=t_nbh,
+               embedding_neighbors_1024_s=t_emb,
+               walks_of_vertices_that_fit=fitting, max_base_segment=max_seg,
+               pin=dict(bytes=pin_bytes, seconds=t_pin),
+               merge_s=t_merge, post_merge_traverse_s=t_trav,
+               next_vertices_kernel_equals_plain=True, pinned_bit_identical=True,
+               walk_matrix_equals_post_merge=True, walks_of_equals_segments=True,
+               next_vertices_plain_cpu_s=t_cpu_next,
+               embedding_ids_equal_cpu=True, embedding_max_abs_err=emb_err,
+               ppr=ppr, per_query=timing, peak_mem_gb=peak,
+               obs_counters=counters, slo=summ)
+    log("reduced_serve", **SERVE_REDUCED)
+    log("serve", **res)
+    return res
+
+
+def serve_ppr(dev, timing):
+    """ppr_rows on an engine of its own at SERVE's PPR vertex count (the
+    dense table), a pending block live: the table built twice on the card
+    is bit-identical and equals the CPU's within rtol 1e-5; its query times
+    go into `timing`."""
+    c, s = CONFIG, SERVE
+    n = s["ppr_vertices"]
+    scale = n / c["n_vertices"]
+    cfg = WalkConfig(n_walks_per_vertex=c["n_walks_per_vertex"], length=c["length"],
+                     chunk_b=c["chunk_b"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2026)
+    src, dst = uniform_pairs(gen, n, n * c["mean_degree"] // 2, dev)
+    g = StreamingGraph.from_edges(src, dst, n, c["edge_capacity"] // 8, device=dev)
+    eng = WalkEngine(graph=g, store=generate_corpus(jr.PRNGKey(0, dev), g, cfg),
+                     cfg=cfg, merge_policy=c["merge_policy"], merge_impl=c["merge_impl"],
+                     rewalk_capacity=n * cfg.n_walks_per_vertex,
+                     max_pending=c["max_pending"])
+    ins = uniform_pairs(gen, n, int(c["batch_inserts"] * scale), dev)
+    dels = uniform_pairs(gen, n, int(c["batch_deletes"] * scale), dev)
+    eng.run_stream(jr.PRNGKey(1, dev), ins[0][None], ins[1][None], dels[0][None],
+                   dels[1][None])
+    svc = WalkQueryService(engine=eng)
+    verts = torch.randperm(n, generator=gen, device=dev)[:s["batch"]]
+    rows, t_cold = sync_time(lambda: svc.ppr_rows(verts, s["restart_prob"]))
+    wm = svc.walk_matrix()
+    a, t_table = sync_time(lambda: batched.ppr_table(wm, n, s["restart_prob"]))
+    b = batched.ppr_table(wm, n, s["restart_prob"])
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32)), \
+        "the PPR table built twice on the card differs"
+    del b
+    assert torch.equal(rows, a[verts]), "ppr_rows != the table's rows"
+    cpu = batched.ppr_table(wm.cpu(), n, s["restart_prob"]).to(dev)
+    rel = ((a - cpu).abs() / cpu.abs().clamp(min=1e-30)).max().item()
+    zeros_agree = bool(torch.equal(a == 0, cpu == 0))
+    torch.testing.assert_close(a, cpu, rtol=s["ppr_rtol"], atol=0)
+    bits_equal = bool(torch.equal(a.view(torch.int32), cpu.view(torch.int32)))
+    del cpu, a
+    timing["ppr_rows"] = timed_queries(svc, "ppr_rows", (verts, s["restart_prob"]),
+                                       [([int(v)], s["restart_prob"])
+                                        for v in verts[:s["per_call_reps"]].tolist()])
+    return dict(n_vertices=n, n_walks=eng.store.n_walks, table_gb=n * n * 4 / 1e9,
+                cold_rows_s=t_cold, table_build_s=t_table,
+                deterministic_on_card=True, max_rel_diff_cpu=rel,
+                zeros_agree_cpu=zeros_agree, bit_equal_cpu=bits_equal)
 
 
 def n2v_stream(dev):
@@ -1225,25 +1579,32 @@ def main() -> int:
     log("build", seconds=t_build, library=_build.library_path().name)
     phase_small_e2e(dev)
     phase_small_maintainer(dev)
+    phase_small_metrics(dev)
     full, tensors = phase_full(dev)
     kernels = phase_kernels(dev, tensors)
+    log("kernels_order1")
     host_state = tensors.pop("host_state")
     del tensors
-    maint, kept = phase_maintainer(dev, host_state)
+    maint, kept, mt = phase_maintainer(dev, host_state)
     del host_state
     sgns_rows = phase_kernels_sgns(dev, kept)
+    log("kernels_sgns")
     del kept
+    serve = phase_serve(dev, mt)
+    del mt
     n2v, kept = phase_full_n2v(dev)
     prefix_read = prefix_read_search(dev, kept)
     kernels += phase_kernels_n2v(dev, kept) + sgns_rows
+    log("kernels_n2v")
     del kept
     next(r for r in kernels if r["name"] == "find_next_packed")["prefix_read"] = prefix_read
     # each kernel's launches on the main paths: order 1 (phase 3), the
-    # maintainer (phase 3b), and the order-2 corpus, unfused and fused
-    # batches (phase 4)
+    # maintainer (phase 3b), the serve path (phase 3c), and the order-2
+    # corpus, unfused and fused batches (phase 4)
     for r in kernels:
         by_path = {"order1": full["launches"][r["name"]],
                    "maintainer": maint["launches"][r["name"]],
+                   "serve": serve["launches"][r["name"]],
                    **{p: n2v["launches"][p][r["name"]] for p in n2v["launches"]}}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path

@@ -62,14 +62,16 @@ _TO = {"u64": to_u64_numpy, "u32": to_u32_numpy,
 
 def config_from(cfg) -> WalkConfig:
     """A reference `WalkConfig` (any object with its fields) -> the port's:
-    the walk model's order, p, q, trials, sampler and window width, and the
-    megakernel backend under its port name."""
+    the walk model's order, p, q, trials, sampler and window width, the
+    megakernel backend under its port name, and the metrics switch with
+    the auditor's sample count."""
     m = cfg.model
     model = WalkModel(order=m.order, p=m.p, q=m.q, n_trials=m.n_trials,
                       sampler=m.sampler, dmax=m.dmax)
     return WalkConfig(n_walks_per_vertex=cfg.n_walks_per_vertex,
                       length=cfg.length, model=model, chunk_b=cfg.chunk_b,
-                      megakernel=MEGAKERNEL_NAMES[cfg.megakernel])
+                      megakernel=MEGAKERNEL_NAMES[cfg.megakernel],
+                      metrics=cfg.metrics, audit_k=cfg.audit_k)
 
 
 def state_from_numpy(d: dict, device=None) -> EngineState:

@@ -25,20 +25,22 @@ class WalkConfig(NamedTuple):
     # (default off), or "off", or a megakernel backend ("cuda", "torch",
     # "ref"; the reference's "pallas" is "cuda" here)
     megakernel: str = "auto"
-    # the stream metrics (obs/) are a later slice: only False is accepted
+    # update repro_torch.obs.metrics.StreamMetrics in the stream loops;
+    # OFF (the default) runs none of that code, ON only reads the engine
     metrics: bool = False
+    # walks replayed a step by the freshness divergence auditor
+    # (obs/staleness.py) when metrics are on; 0 skips the auditor
+    audit_k: int = 4
 
 
 def check_config(cfg: WalkConfig) -> None:
-    """Raise on an unknown option, or one this port does not have yet."""
+    """Raise on an unknown option."""
     from repro_torch.kernels import megakernel
     check_model(cfg.model)
     if cfg.megakernel not in ("off", "auto") + megakernel.BACKENDS:
         raise ValueError(f"unknown megakernel backend {cfg.megakernel!r}; "
                          f"expected one of "
                          f"{megakernel.BACKENDS + ('off', 'auto')}")
-    if cfg.metrics:
-        raise NotImplementedError("WalkConfig.metrics: obs/ is not ported yet")
 
 
 def walk_start_vertex(w, n_w: int):

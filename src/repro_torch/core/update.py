@@ -16,7 +16,15 @@ host, and `n_pending` and `epoch` are host integers. Where the reference
 donates, the port updates in place: a step writes its version block into
 the pending tensors in place, and a merge resets them in place, so an
 engine's earlier `pending` tensors are overwritten (as donation
-invalidates them in the reference). Stores are never written in place.
+invalidates them in the reference). Stores are never written in place:
+`slot_epoch` is cloned by every update and a merge builds a new store, so
+a reader that holds a store, plus copies of the pending blocks it reads
+(`Overlay.copy_pending`), keeps its answers while the engine streams on
+(the pin registry below, serve/snapshots.py).
+
+With `WalkConfig.metrics` the stream loops also update a
+`repro_torch.obs.metrics.StreamMetrics` between the apply and any eager
+merge; with it off they run none of that code.
 """
 from __future__ import annotations
 
@@ -139,6 +147,15 @@ class WalkEngine:
                                         rewalk_capacity * cfg.length,
                                         pending=pending, n_pending=n_pending,
                                         epoch=epoch)
+        # outstanding read pins (serve/snapshots.py)
+        self._pins = 0
+        # cfg.metrics: StreamMetrics accumulated across run_stream calls
+        # (export with repro_torch.obs.export.summary)
+        if cfg.metrics:
+            from repro_torch.obs.metrics import StreamMetrics
+            self.metrics = StreamMetrics.empty(store.device)
+        else:
+            self.metrics = None
 
     # ----------------------------------------------------- state projections
 
@@ -175,6 +192,26 @@ class WalkEngine:
         """Sticky MAV gather-capacity flag, checked once at stream end."""
         return bool(self.state.overflow)
 
+    # ----------------------------------------------------------- pin registry
+
+    @property
+    def pins_active(self) -> int:
+        """Outstanding snapshot pins (serve/snapshots.py)."""
+        return self._pins
+
+    def pin_buffers(self) -> None:
+        """Register a read pin. The reference stops donating the engine's
+        buffers while a pin is out; the port donates nothing, and a pinned
+        snapshot owns copies of the only tensors an update rewrites in
+        place (the pending blocks), so this only counts."""
+        self._pins += 1
+
+    def unpin_buffers(self) -> None:
+        """Release one read pin."""
+        if self._pins <= 0:
+            raise RuntimeError("unpin_buffers without a matching pin")
+        self._pins -= 1
+
     # ------------------------------------------------------------------ API
 
     def insert_edges(self, key, src, dst):
@@ -206,14 +243,21 @@ class WalkEngine:
         affected counts (int32 [n_batches]); MAV overflow accumulates and
         surfaces once via `mav_overflowed`. With `return_masks=True`
         returns `(affected, aux)`, `aux` the stacked `UpdateAux` of the
-        steps ([n_batches, capacity] leaves)."""
-        self.state, out = run_stream(
-            self.state, jr.split(jr.as_key(key, self.store.device),
-                                 len(ins_src)),
-            ins_src, ins_dst, del_src, del_dst, cfg=self.cfg,
-            capacity=self.rewalk_capacity, mav_capacity=self._mav_capacity(),
-            max_pending=self.max_pending, merge_policy=self.merge_policy,
-            merge_impl=self.merge_impl, with_masks=return_masks)
+        steps ([n_batches, capacity] leaves). With `cfg.metrics`,
+        `self.metrics` accumulates the stream's counters; the return value
+        is unchanged."""
+        keys = jr.split(jr.as_key(key, self.store.device), len(ins_src))
+        kw = dict(cfg=self.cfg, capacity=self.rewalk_capacity,
+                  mav_capacity=self._mav_capacity(),
+                  max_pending=self.max_pending, merge_policy=self.merge_policy,
+                  merge_impl=self.merge_impl, with_masks=return_masks)
+        if self.cfg.metrics:
+            self.state, out, self.metrics = run_stream(
+                self.state, keys, ins_src, ins_dst, del_src, del_dst,
+                metrics=self.metrics, **kw)
+        else:
+            self.state, out = run_stream(self.state, keys, ins_src, ins_dst,
+                                         del_src, del_dst, **kw)
         return out
 
     def _mav_capacity(self) -> int:
@@ -442,27 +486,42 @@ def pending_after_stream(n_pending: int, n_batches: int, max_pending: int,
 def stream_step_aux(state: EngineState, key, ins_src, ins_dst, del_src,
                     del_dst, cfg: WalkConfig, capacity: int,
                     mav_capacity: int, max_pending: int, merge_policy: str,
-                    merge_impl: str):
+                    merge_impl: str, metrics=None):
     """One streaming step: forced merge if pending is full, Algorithm 2,
-    then the eager merge. Returns (EngineState, UpdateAux)."""
-    if state.n_pending >= max_pending:
+    then the eager merge. Returns (EngineState, UpdateAux). With a
+    `StreamMetrics` as `metrics` the step also folds this update into the
+    counters (after the apply, before the eager merge, while the new block
+    is pending) and returns (state, aux, metrics)."""
+    forced = state.n_pending >= max_pending
+    if forced:
         state = _merge_state(state, merge_impl)
+    overflow_before = state.overflow
     state, aux = _apply_update(state, ins_src, ins_dst, del_src, del_dst,
                                key, cfg, capacity, mav_capacity)
+    if metrics is not None:
+        from repro_torch.obs.metrics import record_engine_step
+        metrics = record_engine_step(metrics, state, aux, state.n_pending - 1,
+                                     forced, overflow_before, cfg,
+                                     eager=merge_policy == "eager", key=key)
     if merge_policy == "eager":
         state = _merge_state(state, merge_impl)
+    if metrics is not None:
+        return state, aux, metrics
     return state, aux
 
 
 def run_stream(state: EngineState, keys, ins_src, ins_dst, del_src, del_dst,
                *, cfg: WalkConfig, capacity: int, mav_capacity: int,
                max_pending: int, merge_policy: str = "on-demand",
-               merge_impl: str = "interleave", with_masks: bool = False):
+               merge_impl: str = "interleave", with_masks: bool = False,
+               metrics=None):
     """A whole [n_batches, batch] stream through `stream_step_aux`, one
     host loop; `keys` [n_batches, 2]. Deletion streams may be None or
     zero-width. Returns (state, affected int32 [n_batches]), or with
     `with_masks` (state, (affected, UpdateAux of [n_batches, capacity]
-    leaves))."""
+    leaves)). With `cfg.metrics` the counters of `metrics` (default
+    fresh) are updated step by step and returned last: (state, out,
+    metrics)."""
     dev = state.store.device
     ins_src, ins_dst = as_ids(ins_src, dev), as_ids(ins_dst, dev)
     n_batches = ins_src.shape[0]
@@ -471,19 +530,27 @@ def run_stream(state: EngineState, keys, ins_src, ins_dst, del_src, del_dst,
     else:
         del_src, del_dst = as_ids(del_src, dev), as_ids(del_dst, dev)
     keys = jr.as_key(keys, dev)
+    if cfg.metrics and metrics is None:
+        from repro_torch.obs.metrics import StreamMetrics
+        metrics = StreamMetrics.empty(dev)
     affected, auxs = [], []
     for i in range(n_batches):
-        state, aux = stream_step_aux(state, keys[i], ins_src[i], ins_dst[i],
-                                     del_src[i], del_dst[i], cfg, capacity,
-                                     mav_capacity, max_pending, merge_policy,
-                                     merge_impl)
+        step = (keys[i], ins_src[i], ins_dst[i], del_src[i], del_dst[i], cfg,
+                capacity, mav_capacity, max_pending, merge_policy, merge_impl)
+        if cfg.metrics:
+            state, aux, metrics = stream_step_aux(state, *step,
+                                                  metrics=metrics)
+        else:
+            state, aux = stream_step_aux(state, *step)
         affected.append(state.last_affected)
         if with_masks:
             auxs.append(aux)
     affected = torch.stack(affected)
-    if not with_masks:
-        return state, affected
-    return state, (affected, UpdateAux(*map(torch.stack, zip(*auxs))))
+    out = (affected if not with_masks
+           else (affected, UpdateAux(*map(torch.stack, zip(*auxs)))))
+    if cfg.metrics:
+        return state, out, metrics
+    return state, out
 
 
 def merge_interleave(base: WalkStore, acc_owner, acc_code, acc_epoch,

@@ -17,10 +17,12 @@ The engine half advances through the same `stream_step_aux` as
 bit-identical to a plain engine's on the same update keys. The reference
 runs a stream in one `lax.scan`; here it is a host loop, as in
 `core/update.run_stream`, and the engine's pending tensors are written in
-place where the reference donates the carry.
+place where the reference donates the carry. With `cfg.walk.metrics` the
+engine half of `run_stream` updates `EmbeddingMaintainer.metrics` as the
+plain engine loop does (obs/metrics.py).
 
-Not ported yet: `cfg.walk.metrics` (obs/) raises NotImplementedError, and
-restoring a `MaintainerState` from a checkpoint waits for train/.
+Not ported yet: restoring a `MaintainerState` from a checkpoint waits for
+train/.
 """
 from __future__ import annotations
 
@@ -136,19 +138,24 @@ def _lr_schedule(cfg: MaintainerConfig, step):
 
 def maintain_step(state: MaintainerState, key_update, key_train, ins_src,
                   ins_dst, del_src, del_dst, cfg: MaintainerConfig,
-                  mav_capacity: int):
+                  mav_capacity: int, obs=None):
     """One co-scheduled step: `stream_step_aux`, then SGNS on the affected
-    walks' pairs. Returns (MaintainerState, StepMetrics).
+    walks' pairs. Returns (MaintainerState, StepMetrics); with a
+    `StreamMetrics` as `obs` the engine half is observed as the plain
+    engine loop observes it, and the return gains it: (state, StepMetrics, obs).
 
     Under a `max_pairs` budget the reference reads every affected lane
     through the overlay and then keeps the `n_lanes` it drew; this reads
     only those lanes, which gives the same rows (at full width, 1,362
     lanes instead of 2.6M)."""
     wcfg = cfg.walk
-    engine, aux = stream_step_aux(
-        state.engine, key_update, ins_src, ins_dst, del_src, del_dst, wcfg,
-        cfg.rewalk_capacity, mav_capacity, cfg.max_pending, cfg.merge_policy,
-        cfg.merge_impl)
+    step = (state.engine, key_update, ins_src, ins_dst, del_src, del_dst,
+            wcfg, cfg.rewalk_capacity, mav_capacity, cfg.max_pending,
+            cfg.merge_policy, cfg.merge_impl)
+    if obs is not None:
+        engine, aux, obs = stream_step_aux(*step, metrics=obs)
+    else:
+        engine, aux = stream_step_aux(*step)
     dev = engine.store.device
 
     with record_function("maintainer.pairs"):
@@ -195,7 +202,10 @@ def maintain_step(state: MaintainerState, key_update, key_train, ins_src,
            "pairs": state.opt["pairs"] + n_pairs.to(I64)}
     metrics = StepMetrics(loss_sum=loss_sum, n_pairs=n_pairs.to(I32),
                           n_affected=engine.last_affected)
-    return MaintainerState(engine=engine, params=params, opt=opt), metrics
+    out = MaintainerState(engine=engine, params=params, opt=opt)
+    if obs is not None:
+        return out, metrics, obs
+    return out, metrics
 
 
 class EmbeddingMaintainer:
@@ -216,6 +226,13 @@ class EmbeddingMaintainer:
         key = jr.PRNGKey(0, store.device) if key is None else key
         # `epoch` resumes the update counter of a store built mid-stream
         self.state = init_maintainer(key, graph, store, cfg, epoch=epoch)
+        # cfg.walk.metrics: engine-side StreamMetrics accumulated across
+        # run_stream calls, as WalkEngine.metrics
+        if cfg.walk.metrics:
+            from repro_torch.obs.metrics import StreamMetrics
+            self.metrics = StreamMetrics.empty(store.device)
+        else:
+            self.metrics = None
 
     # ----------------------------------------------------- state projections
 
@@ -288,7 +305,8 @@ class EmbeddingMaintainer:
         embeddings as it goes -> per-batch StepMetrics stacked [n_batches].
         `key` drives the walk updates as `WalkEngine.run_stream` would;
         `train_key` (default `fold_in(key, 0x5465)`) drives the pair
-        subsample and the negatives."""
+        subsample and the negatives. With `cfg.walk.metrics`,
+        `self.metrics` accumulates the engine's counters."""
         dev = self.device
         key = jr.as_key(key, dev)
         ins_src, ins_dst = as_ids(ins_src, dev), as_ids(ins_dst, dev)
@@ -304,9 +322,13 @@ class EmbeddingMaintainer:
         train_keys = jr.split(train_key, n_batches)
         out = []
         for i in range(n_batches):
-            self.state, m = maintain_step(
-                self.state, update_keys[i], train_keys[i], ins_src[i],
-                ins_dst[i], del_src[i], del_dst[i], self.cfg,
-                self.cfg.mav_capacity)
+            step = (self.state, update_keys[i], train_keys[i], ins_src[i],
+                    ins_dst[i], del_src[i], del_dst[i], self.cfg,
+                    self.cfg.mav_capacity)
+            if self.metrics is not None:
+                self.state, m, self.metrics = maintain_step(
+                    *step, obs=self.metrics)
+            else:
+                self.state, m = maintain_step(*step)
             out.append(m)
         return StepMetrics(*map(torch.stack, zip(*out)))

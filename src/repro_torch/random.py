@@ -205,25 +205,103 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                -0.00367342844, 0.00573950773, -0.0076224613,
                0.00943887047, 1.00167406, 2.83297682)
 
+# XLA's f32 log1p (ElementalIrEmitter::EmitLog1p): a Cephes rational
+# x + (-x^2/2 + x^3 * N(x)/D(x)) for |x| < sqrt(2) - 1, else log(1 + x)
+_LOG1P_SMALL = 0.41421356237309504880
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+# and its f32 log (the Cephes logf polynomial XLA's CPU backend inlines):
+# three interleaved Horner chains in the reduced mantissa, then the
+# exponent's two-part ln 2
+_LOG_P = ((7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1),
+          (-1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1),
+          (2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1))
+_LN2_LO, _LN2_HI = -2.12194440e-4, 0.693359375
+_SQRT_HALF = 0.707106781186547524
+_FLT_MIN = 1.17549435e-38
+
+
+def fma32(a, b, c):
+    """float32 fused multiply-add a*b + c, rounded once, from float64 ops
+    (the same on the CPU and the card): the f32 product is exact in f64,
+    the sum is rounded to odd (TwoSum's error term fixes the last bit), and
+    rounding that to f32 is the correctly rounded FMA. A plain f64 sum
+    rounded twice is not: it misses where the f64 sum lands on an f32 tie.
+    XLA's CPU backend contracts a multiply feeding a single add into an
+    FMA, so the reference's float32 math needs it where it does so."""
+    f64 = torch.float64
+    p = a.to(f64) * b.to(f64)
+    c = torch.as_tensor(c, dtype=f64, device=p.device)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    bits = s.view(torch.int64)
+    odd = (err != 0) & ((bits & 1) == 0)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    return torch.where(odd, bits + step, bits).view(f64).to(torch.float32)
+
+
+def _f32(v, like):
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def _log32(a):
+    """XLA's f32 log of a > 0 (a is 1 + x >= 2^-24 here, never 0, inf or
+    NaN): the mantissa reduced to [sqrt(1/2) - 1, sqrt(2) - 1), the
+    polynomial with FMA where XLA's CPU code contracts it."""
+    f32 = torch.float32
+    bits = torch.maximum(a, _f32(_FLT_MIN, a)).view(torch.int32)
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(f32)
+    e = ((bits >> 23) - 127).to(f32) + 1.0
+    low = m < _f32(_SQRT_HALF, a)
+    x = (m - 1.0) + torch.where(low, m, 0.0)
+    e = e - low.to(f32)
+    x2 = x * x
+    x3 = x2 * x
+    y0, y1, y2 = (fma32(x, _f32(c0, a), _f32(c1, a)) for c0, c1, _ in _LOG_P)
+    y0, y1, y2 = (fma32(y, x, _f32(c2, a))
+                  for y, (_, _, c2) in zip((y0, y1, y2), _LOG_P))
+    y = fma32(fma32(y0, x3, y1), x3, y2)
+    y = fma32(y, x3, e * _f32(_LN2_LO, a))
+    return ((x - x2 * 0.5) + y) + e * _f32(_LN2_HI, a)
+
+
+def log1p32(x: torch.Tensor) -> torch.Tensor:
+    """float32 log1p as XLA's CPU backend computes it (jax 0.9.0): for
+    |x| < sqrt(2) - 1 the Cephes rational with FMA Horner steps, else its
+    own f32 log of 1 + x; bit for bit on every input `normal` can draw."""
+    num = torch.zeros_like(x)
+    den = torch.zeros_like(x)
+    for cn, cd in zip(_LOG1P_NUM, _LOG1P_DEN):
+        num = fma32(num, x, _f32(cn, x))
+        den = fma32(den, x, _f32(cd, x))
+    x2 = x * x
+    small = x + (x2 * -0.5 + (x * x2) * (num / den))
+    return torch.where(x.abs() < _f32(_LOG1P_SMALL, x), small,
+                       _log32(x + 1.0))
+
 
 def erfinv32(x: torch.Tensor) -> torch.Tensor:
-    """float32 erf^-1 by the polynomial XLA lowers `lax.erf_inv` to, in its
-    order of operations (separate multiplies and adds). The log1p and sqrt
-    are taken in float64 and rounded once to float32: the sqrt is then
-    IEEE-exact, as XLA's (torch's float32 CPU sqrt is not), and the log1p
-    within an ulp of exact, where XLA uses its own approximation; so
-    results may differ from the reference by a few ulp
-    (tests/test_torch_random.py states the bound)."""
+    """float32 erf^-1 by the polynomial XLA lowers `lax.erf_inv` to, bit for
+    bit with jax 0.9.0 on the CPU: w = -log1p(-x^2) through `log1p32`, the
+    sqrt correctly rounded (from float64, which is exact for an f32
+    operand; torch's float32 CPU sqrt is not), and the Horner steps fused
+    as XLA's CPU backend fuses them. Held over every one of the 2^23
+    inputs `normal` can draw (tests/test_torch_random.py)."""
     f32, f64 = torch.float32, torch.float64
-    w = -torch.log1p((x * -x).to(f64)).to(f32)
+    w = -log1p32(x * -x)
     lt = w < 5.0
     w = torch.where(lt, w - 2.5, torch.sqrt(w.to(f64)).to(f32) - 3.0)
-    coef = [torch.where(lt, torch.tensor(a, dtype=f32, device=x.device),
-                        torch.tensor(b, dtype=f32, device=x.device))
+    coef = [torch.where(lt, _f32(a, x), _f32(b, x))
             for a, b in zip(_ERFINV_LT5, _ERFINV_GE5)]
     p = coef[0]
     for c in coef[1:]:
-        p = c + p * w
+        p = fma32(p, w, c)
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
@@ -231,8 +309,9 @@ def normal(key: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
     """`jax.random.normal(key, shape, float32)` for each key of `key`
     ([..., 2]): sqrt(2) * erf^-1(u), u uniform on [nextafter(-1, 0), 1)
     as `jax._src.random._normal_real` draws it (the mantissa bits of
-    `uniform`, scaled by (hi - lo), which rounds to 2, and shifted by lo).
-    Within a few ulp of the reference (see `erfinv32`)."""
+    `uniform`, scaled by (hi - lo), which rounds to 2, and shifted by lo;
+    the product is exact, so XLA's FMA there changes nothing). Bit for bit
+    with the reference (see `erfinv32`)."""
     if dtype != torch.float32:
         raise TypeError(f"normal: float32 only, got {dtype}")
     f32 = torch.float32

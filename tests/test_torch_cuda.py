@@ -572,3 +572,119 @@ def test_maintainer_on_card_equals_cpu(dev, max_pairs):
     for k in ("in", "out"):
         torch.testing.assert_close(p_dev[k].cpu(), p_cpu[k], rtol=2e-4, atol=1e-5)
     assert ops.launches["sgns_step"] == 4
+
+
+def test_normal_on_card_equals_cpu(dev):
+    """`normal` on the card (its f32 log1p and FMAs from float64 operations)
+    equals its CPU values bit for bit, as the CPU equals JAX's."""
+    for seed, shape in ((0, (1 << 16,)), (4, (300, 128)), (7, (3, 7))):
+        got = jr.normal(jr.PRNGKey(seed, dev), shape).cpu()
+        want = jr.normal(jr.PRNGKey(seed, "cpu"), shape)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), seed
+    u = torch.linspace(-0.99999994, 0.99999994, 1 << 20)
+    assert torch.equal(jr.erfinv32(u.to(dev)).cpu().view(torch.int32),
+                       jr.erfinv32(u).view(torch.int32))
+
+
+def _service_pair(dev, metrics=False):
+    """One engine and mixed stream on the card and on the CPU, 3 batches
+    left pending, and a service over each."""
+    from repro_torch.serve import WalkQueryService
+    rng = np.random.default_rng(5)
+    n, cfg = 256, WalkConfig(n_walks_per_vertex=3, length=12, metrics=metrics)
+    src, dst = rng.integers(0, n, size=(2, 3000))
+    ins = rng.integers(0, n, size=(2, 3, 40))
+    dels = rng.integers(0, n, size=(2, 3, 10))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        g = StreamingGraph.from_edges(src, dst, n, 1 << 14, device=d)
+        eng = WalkEngine(graph=g, store=generate_corpus(jr.PRNGKey(1, d), g, cfg),
+                         cfg=cfg, rewalk_capacity=n * 3, max_pending=4)
+        eng.run_stream(jr.PRNGKey(2, d), ins[0], ins[1], dels[0], dels[1])
+        assert eng.n_pending == 3
+        out.append(WalkQueryService(engine=eng))
+    return out
+
+
+def _service_answers(svc, snap=None):
+    wm = svc.walk_matrix(snapshot=snap)
+    ws = torch.arange(0, 768, 7)
+    ps = ws % 11
+    v = wm[ws, ps]
+    nxt, found = svc.next_vertices(v, ws, ps, snapshot=snap)
+    assert bool(found.all())
+    vs = list(range(0, 256, 5))
+    return {"walk_matrix": wm, "next": nxt, "found": found,
+            "walks_of": svc.walks_of(vs, capacity=64, snapshot=snap),
+            "neighborhoods": svc.neighborhoods(vs, hops=4, snapshot=snap),
+            "ppr": svc.ppr_rows(vs, snapshot=snap)}
+
+
+def test_service_on_card_equals_cpu(dev):
+    """Every query kind on the card (kernels 1-4 on its read path) equals
+    the CPU's: walks, ids and pinned answers bit for bit; PPR rows within
+    rtol 1e-5 (the table's adds do not depend on their order, its row
+    sums do: each device sums in its own); embedding neighbors' ids equal
+    and scores within 1e-5; a pin survives a merge and two more batches
+    on both."""
+    card, cpu = _service_pair(dev)
+    ops.reset_launches()
+    a = _service_answers(card)
+    launches = dict(ops.launches)
+    b = _service_answers(cpu)
+    for k in a:
+        if k == "ppr":
+            torch.testing.assert_close(a[k].cpu(), b[k], rtol=1e-5, atol=0)
+        else:
+            assert torch.equal(a[k].cpu(), b[k]), k
+    for k in ("szudzik_pair", "szudzik_unpair", "delta_decode", "find_next_packed"):
+        assert launches[k] > 0, launches
+    table = jr.normal(jr.PRNGKey(8, "cpu"), (256, 128))
+    table[20:23] = table[19]                     # exact ties
+    card.set_embedding_table(table.to(dev))
+    cpu.set_embedding_table(table)
+    ids_c, sc_c = card.embedding_neighbors(list(range(0, 256, 3)), k=10)
+    ids, sc = cpu.embedding_neighbors(list(range(0, 256, 3)), k=10)
+    assert torch.equal(ids_c.cpu(), ids)
+    torch.testing.assert_close(sc_c.cpu(), sc, rtol=1e-5, atol=1e-5)
+    assert card.embedding_neighbors([19], k=3)[0].tolist() == [[20, 21, 22]]
+    snaps = [s.pin() for s in (card, cpu)]
+    pre = [_service_answers(s, snap) for s, snap in zip((card, cpu), snaps)]
+    rng = np.random.default_rng(6)
+    for s in (card, cpu):
+        s.engine.merge()
+        ins = rng.integers(0, 256, size=(2, 2, 40))
+        s.engine.run_stream(jr.PRNGKey(9, s.device), ins[0], ins[1])
+        s._wm_cache.clear()
+        s._ppr_cache.clear()
+    for s, snap, want in zip((card, cpu), snaps, pre):
+        got = _service_answers(s, snap)
+        for k in got:
+            assert torch.equal(got[k], want[k]), k
+        snap.release()
+        assert s.engine.pins_active == 0
+
+
+def test_ppr_table_on_card_is_deterministic(dev):
+    """Two builds of the PPR table from one walk matrix on the card are
+    bit-identical, and equal to the CPU's."""
+    from repro_torch.core.ppr import ppr_scores
+    rng = np.random.default_rng(7)
+    wm = torch.from_numpy(rng.integers(0, 2048, size=(2048 * 10, 80)))
+    wm[:, 0] = torch.arange(2048 * 10) // 10
+    a = ppr_scores(wm.to(dev), 2048, 0.2)
+    b = ppr_scores(wm.to(dev), 2048, 0.2)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    torch.testing.assert_close(a.cpu(), ppr_scores(wm, 2048, 0.2), rtol=1e-5, atol=0)
+
+
+def test_metrics_on_card_equal_cpu(dev):
+    """A metrics-ON stream on the card: the counters equal the CPU's, and
+    the engine equals a metrics-OFF card engine."""
+    from repro_torch.obs.export import summary
+    card, cpu = _service_pair(dev, metrics=True)
+    off, _ = _service_pair(dev)
+    assert summary(card.engine.metrics) == summary(cpu.engine.metrics)
+    a, b = state_to_numpy(card.engine.state), state_to_numpy(off.engine.state)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)

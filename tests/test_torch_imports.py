@@ -58,7 +58,11 @@ def test_every_module_imports_without_a_card():
                                     "repro_torch.kernels.sgns",
                                     "repro_torch.core.overlay",
                                     "repro_torch.models.embeddings",
-                                    "repro_torch.downstream"])
+                                    "repro_torch.downstream",
+                                    "repro_torch.core.ppr",
+                                    "repro_torch.obs.export",
+                                    "repro_torch.obs.staleness",
+                                    "repro_torch.serve"])
 def test_each_module_imports_first_in_a_fresh_process(module):
     """The core and the kernel wrappers import each other; any one of them
     imported first must still work."""

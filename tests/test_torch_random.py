@@ -117,24 +117,53 @@ def test_randint_int32_matches_jax(lo, hi):
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
 
 
-def test_normal_within_four_ulp_of_jax():
-    """float32 `normal`: XLA's erf_inv polynomial in its order; the log1p
-    inside it is torch's, not XLA's, so a draw may differ by a few ulp.
-    Held to 4 ulp over 2^20 draws."""
-    worst = 0
+def test_normal_matches_jax_bit_for_bit():
+    """float32 `normal` = `jax.random.normal` bit for bit (0 ulp) over 2^20
+    draws: XLA's erf_inv polynomial and its own f32 log1p, with FMA where
+    XLA's CPU backend contracts."""
     for seed in range(16):
         kj = jax.random.PRNGKey(seed)
         want = np.asarray(jax.random.normal(kj, (1 << 16,), jnp.float32))
         got = jr.normal(jr.PRNGKey(seed, device="cpu"), (1 << 16,)).numpy()
         assert got.dtype == np.float32 and np.isfinite(got).all()
-        ulps = np.abs(got.view(np.int32).astype(np.int64)
-                      - want.view(np.int32).astype(np.int64))
-        worst = max(worst, int(ulps.max()))
-    assert worst <= 4, worst
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     kj = jax.random.PRNGKey(3)
     want = np.asarray(jax.random.normal(kj, (3, 7), jnp.float32))
     got = jr.normal(jr.PRNGKey(3, device="cpu"), (3, 7)).numpy()
     assert got.shape == (3, 7)
-    np.testing.assert_allclose(got, want, rtol=4 * 2**-23, atol=0)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     with pytest.raises(TypeError):
         jr.normal(jr.PRNGKey(3, device="cpu"), (2,), torch.float64)
+
+
+@pytest.mark.parametrize("part", range(4))
+def test_erfinv_and_log1p_match_xla_on_every_normal_input(part):
+    """`normal` draws u from 2^23 values (a mantissa, scaled by 2 and
+    shifted by nextafter(-1, 0)); a quarter of them each case, every
+    fourth mantissa from `part`: `log1p32(-u^2)` and `erfinv32(u)` equal
+    XLA's jitted `log1p` and `erf_inv` bit for bit."""
+    from jax import lax
+    m = np.arange(part, 1 << 23, 4, dtype=np.uint32)
+    u = ((m | 0x3F800000).view(np.float32) - np.float32(1)) * np.float32(2)
+    u = np.maximum(u + np.nextafter(np.float32(-1), np.float32(0)),
+                   np.nextafter(np.float32(-1), np.float32(0)))
+    want_l, want_e = jax.jit(lambda x: (jnp.log1p(x * -x), lax.erf_inv(x)))(u)
+    t = torch.from_numpy(u)
+    np.testing.assert_array_equal(jr.log1p32(t * -t).numpy().view(np.int32),
+                                  np.asarray(want_l).view(np.int32))
+    np.testing.assert_array_equal(jr.erfinv32(t).numpy().view(np.int32),
+                                  np.asarray(want_e).view(np.int32))
+
+
+def test_fma32_rounds_once():
+    """`fma32` is a true float32 FMA where a float64 sum rounded to float32
+    is not: (1 + 2^-12)^2 is the midpoint 1 + 2^-11 + 2^-24 of two floats,
+    and + 2^-80 puts the exact sum just above it. The f64 sum drops the
+    2^-80 and ties to even (down); one rounding goes up."""
+    a = torch.tensor([1.0 + 2**-12, -(1.0 + 2**-12), 3.0], dtype=torch.float32)
+    c = torch.tensor([2.0**-80, -(2.0**-80), -0.25], dtype=torch.float32)
+    got = jr.fma32(a, a.abs(), c)
+    up = 1.0 + 2**-11 + 2**-23
+    assert got.tolist() == [up, -up, 8.75]
+    twice = (a.double() * a.abs().double() + c.double()).float()
+    assert twice.tolist()[:2] == [1.0 + 2**-11, -(1.0 + 2**-11)]
