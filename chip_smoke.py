@@ -61,6 +61,25 @@ every phase passed):
      unfused batch. Kernels 5 and 6 are also timed in turns against the composition
      they replaced: the two neighbor windows built in torch (plus, for
      kernel 5, the windowed kernel, which no main path launches any more)
+  6. the paper's comparison (§7.1, Figs. 7-8) on the card: `wharf-stream`
+     (`configs.get_arch`) and its stream_10k_mixed shape at 2^18 vertices,
+     an er graph (mean degree ~100) and the paper's R-MAT update stream
+     (a = 0.5, b = c = 0.1, d = 0.3) drawn on the card by the port's
+     generators (= the CPU's draws: the stream, the graph's first 2^16
+     edges); Wharf, the inverted-index (II) and the tree baselines one
+     after another from one corpus key, stream and key, each freed before
+     the next: per-batch synced ms, affected walks, `nbytes` beside the
+     peak device memory, launches by path. Checks: batch 1's affected
+     count equal across the three; at order 1 the tree's walks = Wharf's
+     stored triplets after every batch (and after the last, Wharf's
+     overlay traverse of every walk = its triplets); the II = the tree at creation, and after batch 1
+     the II's rewritten columns are the tree's shifted by the one column
+     the reference's II writes ahead; every tree slot stored once, the
+     columns lexsorted, each next = the owner of the next slot, every step
+     an edge; every pair the II rewrote (from its first new vertex) an
+     edge. Then II and tree over 2 order-2 batches of the
+     stream_10k_n2v_factorized shape (kernel 5), and both on a 2^12-vertex
+     graph on the card against the CPU, order 1 and order 2
 Phase 2 also runs a small maintainer on the card against the CPU and
 against a plain engine, and the order-1 stream with `WalkConfig(metrics=
 True)` on the card: its state equals the plain run's, its counters equal
@@ -82,7 +101,10 @@ _ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(_ROOT, "src"))
 
 from repro_torch import random as jr  # noqa: E402
-from repro_torch.convert import state_to_numpy  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.convert import baseline_to_numpy, state_to_numpy  # noqa: E402
+from repro_torch.core.baselines import IIEngine, TreeEngine  # noqa: E402
+from repro_torch.data.streams import edge_batch_stream, er_edges, mixed_edge_stream  # noqa: E402
 from repro_torch.core import StreamingGraph, WalkConfig, generate_corpus  # noqa: E402
 from repro_torch.core import pairing  # noqa: E402
 from repro_torch.core.corpus import walk_start_vertex  # noqa: E402
@@ -142,6 +164,20 @@ SERVE_REDUCED = dict(MAINT_REDUCED, ppr_vertices=(
     "batch of 1,250 inserts and 250 deletes, the per-vertex rate of CONFIG)"))
 SGNS_LOSS_RTOL = 1e-5
 SGNS_GRAD_TOL = dict(rtol=1e-5, atol=1e-6)
+
+# phase 6: the paper's comparison on `wharf-stream` (configs/wharf_stream.py)
+# and its stream_10k_mixed / stream_10k_n2v_factorized shapes, cut as CONFIG;
+# an er graph of 2^18 * 50 undirected edges, the R-MAT stream at the
+# generators' defaults (a = 0.5, b = c = 0.1, d = 0.3)
+PAPER = dict(log2_n=18, edge_capacity=1 << 25, max_pending=4,
+             graph_edges=(1 << 18) * 50, n2v_batches=2, cpu_prefix=1 << 16,
+             seeds=dict(graph=2024, stream=2025, n2v_stream=2026, corpus=0,
+                        update=1),
+             small=dict(log2_n=12, graph_edges=(1 << 12) * 10, n_batches=2,
+                        n_ins=200, n_del=40, n_walks_per_vertex=4, length=16))
+PAPER_REDUCED = dict(REDUCED, n2v_batches=(
+    "8 -> 2 order-2 batches (stream_10k_n2v_factorized), II and tree only "
+    "(the run's time limit)"))
 
 KERNEL_META = {
     "szudzik_pair": ("src/repro_torch/kernels/csrc/szudzik.cu",
@@ -514,6 +550,7 @@ def phase_maintainer(dev, host_state):
     dels = [x.reshape(nb + 1, nd) for x in uniform_pairs(gen, n, (nb + 1) * nd, dev)]
     torch.cuda.reset_peak_memory_stats()
     graph = StreamingGraph.from_edges(src, dst, n, c["edge_capacity"], device=dev)
+    edges = int(graph.num_edges)
     del src, dst
     mcfg = MaintainerConfig(walk=cfg, n_vertices=n, rewalk_capacity=n_walks,
                             max_pending=c["max_pending"], merge_policy=c["merge_policy"],
@@ -1569,6 +1606,285 @@ def phase_kernels_sgns(dev, kept):
     return rows
 
 
+# ---------------------------------------------------------------- phase 6
+
+
+def paper_setup():
+    """Phase 6's configuration: wharf-stream's own config and shapes ->
+    (config, stream_10k_mixed, order-1 WalkConfig, order-2 WalkConfig). The
+    n2v shape overrides `order` and `sampler`, as the reference's cells."""
+    arch = get_arch("wharf-stream")
+    wcfg = arch.make_config()
+    mixed = arch.shapes["stream_10k_mixed"]
+    n2v = arch.shapes["stream_10k_n2v_factorized"]
+    cfg2 = dataclasses.replace(wcfg, order=n2v["order"],
+                               sampler=n2v["sampler"]).walk_config()
+    return wcfg, mixed, wcfg.walk_config(), cfg2
+
+
+def paper_engine(kind: str, graph, cfg, key, capacity: int, max_pending: int,
+                 mixed=None):
+    """One engine of the comparison on `graph`, its corpus from `key`."""
+    if kind == "wharf":
+        return WalkEngine(graph=graph, store=generate_corpus(key, graph, cfg),
+                          cfg=cfg, merge_policy=mixed["merge_policy"],
+                          merge_impl=mixed["merge_impl"],
+                          rewalk_capacity=capacity, max_pending=max_pending)
+    eng = {"ii": IIEngine, "tree": TreeEngine}[kind].create(key, graph, cfg)
+    eng.rewalk_capacity = capacity
+    return eng
+
+
+def paper_batch(eng, stream, key, i: int) -> int:
+    """Batch i of a stacked stream under fold_in(key, i) -> affected."""
+    return int(eng.run_stream(jr.fold_in(key, i),
+                              *(x[i:i + 1] for x in stream))[0])
+
+
+def walk_matrix_of(eng) -> torch.Tensor:
+    """The engine's walks as an int32 [n_walks, l] matrix: the II's
+    sequences, the tree's owners by (walk, pos), Wharf's owners by slot
+    f = w*l + p: every base triplet (f from its code, kernel 2), then the
+    live pending row of each rewritten slot over it (no merge)."""
+    if isinstance(eng, IIEngine):
+        return eng.walks
+    if isinstance(eng, TreeEngine):
+        n_walks = eng.walk.shape[0] // eng.cfg.length
+        m = torch.empty((n_walks, eng.cfg.length), dtype=torch.int32,
+                        device=eng.walk.device)
+        m[eng.walk.long(), eng.pos.long()] = eng.owner
+        return m
+    ov = eng.overlay()
+    m = torch.empty(ov.row_of_slot.shape[0], dtype=torch.int32,
+                    device=ov.base.device)
+    m[ops.szudzik_unpair(ov.base.code)[0]] = ov.base.owner
+    live = ov.row_of_slot >= 0
+    m[live] = ov.owner[ov.row_of_slot[live].long()]
+    return m.reshape(ov.base.n_walks, ov.base.length)
+
+
+def overlay_walks(eng) -> torch.Tensor:
+    """Wharf's walks read through the overlay (FINDNEXT from every walk's
+    start, base and pending; kernels 1, 2 and 4), int32."""
+    w = torch.arange(eng.store.n_walks, device=eng.store.device)
+    start = walk_start_vertex(w, eng.cfg.n_walks_per_vertex)
+    return eng.overlay().traverse(w, start, eng.cfg.length - 1).to(torch.int32)
+
+
+def steps_are_edges(graph, a, b, what: str):
+    """Every step a -> b an edge of `graph`, or an isolated vertex's
+    self-step (the samplers' rule)."""
+    a, b = a.reshape(-1).long(), b.reshape(-1).long()
+    ok = graph.has_edge(a, b) | ((a == b) & (graph.degrees().long()[a] == 0))
+    if not bool(ok.all()):
+        raise AssertionError(f"{what}: {int((~ok).sum())} steps are not graph edges")
+
+
+def tree_checks(tr) -> torch.Tensor:
+    """Every (walk, pos) slot stored once; the columns lexsorted by
+    (owner, walk, pos); each row's next the owner of its walk's next slot,
+    the terminal slot pointing to itself; every step an edge -> the walk
+    matrix."""
+    length = tr.cfg.length
+    slot = tr.walk.long() * length + tr.pos.long()
+    if not torch.equal(torch.sort(slot).values,
+                       torch.arange(slot.shape[0], device=slot.device)):
+        raise AssertionError("tree: a (walk, pos) slot is not stored exactly once")
+    key = tr.owner.long() * slot.shape[0] + slot
+    if not bool((key[1:] > key[:-1]).all()):
+        raise AssertionError("tree: the columns are not lexsorted")
+    del slot, key
+    m = walk_matrix_of(tr)
+    nx = torch.empty_like(m)
+    nx[tr.walk.long(), tr.pos.long()] = tr.nxt
+    if not (torch.equal(nx[:, :-1], m[:, 1:]) and torch.equal(nx[:, -1], m[:, -1])):
+        raise AssertionError("tree: a next is not the owner of the next slot")
+    steps_are_edges(tr.graph, m[:, :-1], m[:, 1:], "tree")
+    return m
+
+
+def first_touched(walks, stream, i: int, n_vertices: int) -> torch.Tensor:
+    """p_min of every walk for batch i's touched vertices (length where the
+    walk has none): the II's MAV, scanning from the front."""
+    touched = torch.zeros(n_vertices, dtype=torch.bool, device=walks.device)
+    for x in stream:
+        touched[x[i].long()] = True
+    cols = torch.arange(walks.shape[1], device=walks.device)
+    return torch.where(touched[walks.long()], cols, walks.shape[1]).amin(dim=1)
+
+
+def ii_checks(before, ii, pm):
+    """The walks the batch rewrote (p_min < l, every one of them: capacity
+    = n_walks) keep columns 0..p_min, the others stay whole; every pair from
+    the first rewritten column on is an edge of the current graph."""
+    after, length = ii.walks, ii.walks.shape[1]
+    cols = torch.arange(length, device=after.device)
+    if not torch.equal(torch.where(cols <= pm[:, None], after, 0),
+                       torch.where(cols <= pm[:, None], before, 0)):
+        raise AssertionError("II: a column before a walk's p_min changed")
+    new = cols[:-1] > pm[:, None]
+    steps_are_edges(ii.graph, after[:, :-1][new], after[:, 1:][new], "II")
+
+
+def ii_shifted_equal(ii_walks, tree_walks, pm) -> bool:
+    """The reference's II writes at column p the vertex it samples at step p
+    (the successor of p), the tree at p + 1: after one batch from one
+    corpus and key at order 1, the II's row is the tree's up to p_min and
+    the tree's shifted by one column after it."""
+    length = ii_walks.shape[1]
+    cols = torch.arange(length, device=ii_walks.device)
+    src = torch.where(cols > pm[:, None], cols + 1, cols).clamp(max=length - 1)
+    want = tree_walks.gather(1, src)
+    keep = (cols < length - 1) | (pm[:, None] >= length - 1)
+    return torch.equal(torch.where(keep, ii_walks, 0), torch.where(keep, want, 0))
+
+
+def phase_paper(dev):
+    """Phase 6 (see the module docstring). The counts are set to 0 before
+    each engine is built and read just after its last batch."""
+    c = PAPER
+    wcfg, mixed, cfg1, cfg2 = paper_setup()
+    n, log2_n = 1 << c["log2_n"], c["log2_n"]
+    n_walks = n * cfg1.n_walks_per_vertex
+    nb = mixed["n_batches"]
+    seeds = c["seeds"]
+    key_c, key_u = jr.PRNGKey(seeds["corpus"], dev), jr.PRNGKey(seeds["update"], dev)
+
+    (src, dst), t_graph_draw = sync_time(lambda: er_edges(
+        jr.PRNGKey(seeds["graph"], dev), c["graph_edges"], log2_n))
+    stream, t_stream_draw = sync_time(lambda: mixed_edge_stream(
+        jr.PRNGKey(seeds["stream"], dev), nb, mixed["batch_edges"],
+        mixed["del_edges"], log2_n))
+    n2v = edge_batch_stream(jr.PRNGKey(seeds["n2v_stream"], dev),
+                            c["n2v_batches"], mixed["batch_edges"], log2_n)
+    n2v = (*n2v, *[torch.zeros((c["n2v_batches"], 0), dtype=torch.int32,
+                               device=dev)] * 2)
+    # the card's draws = the CPU's: the whole stream, the graph's prefix
+    cpu = torch.device("cpu")
+    want = mixed_edge_stream(jr.PRNGKey(seeds["stream"], cpu), nb,
+                             mixed["batch_edges"], mixed["del_edges"], log2_n)
+    want += er_edges(jr.PRNGKey(seeds["graph"], cpu), c["cpu_prefix"], log2_n)
+    got = (*stream, src[:c["cpu_prefix"]], dst[:c["cpu_prefix"]])
+    for w, g in zip(want, got):
+        if not torch.equal(w, g.cpu()):
+            raise AssertionError("a generator's card draws != its CPU draws")
+    graph = StreamingGraph.from_edges(src, dst, n, c["edge_capacity"], device=dev)
+    edges = int(graph.num_edges)
+    del src, dst
+
+    def run(kind, cfg, data, batches, path):
+        """One engine over `batches` batches of `data`, freed on return ->
+        (results, its walk matrices: at creation, then after each batch
+        (the II: after batch 1 only), the II's p_min of batch 1)."""
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()    # ---- this engine, counted from here
+        eng, t_create = sync_time(lambda: paper_engine(
+            kind, graph, cfg, key_c, n_walks, c["max_pending"], mixed))
+        mats, ms, affected, pm1 = [walk_matrix_of(eng)], [], [], None
+        for i in range(batches):
+            before = eng.walks if kind == "ii" else None
+            aff, dt = sync_time(lambda: paper_batch(eng, data, key_u, i))
+            ms.append(dt * 1e3)
+            affected.append(aff)
+            if kind == "ii":
+                pm = first_touched(before, data, i, n)
+                ii_checks(before, eng, pm)
+                pm1 = pm if i == 0 else pm1
+            if kind != "ii" or i == 0:
+                mats.append(walk_matrix_of(eng))
+        res = dict(create_s=t_create, batch_update_ms=ms, affected=affected)
+        if kind == "wharf":
+            # the read path: the overlay traverse = the triplets by slot
+            if not torch.equal(overlay_walks(eng), mats[-1]):
+                raise AssertionError("wharf: overlay traverse != the stored triplets")
+            _, res["merge_s"] = sync_time(eng.merge)
+            decoded = eng.store.packed_view().decode()
+            if not torch.equal(decoded[:eng.store.size], eng.store.code):
+                raise AssertionError("wharf: packed decode != code")
+            del decoded
+            res["nbytes"] = eng.store.nbytes_packed()
+            res["nbytes_uncompressed"] = eng.store.nbytes_uncompressed()
+        else:
+            res["nbytes"] = eng.nbytes()
+        launches[path] = dict(ops.launches)   # ---- read just after it
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if kind == "tree":
+            tree_checks(eng)
+        return res, mats, pm1
+
+    launches, engines, checks = {}, {}, {}
+    engines["wharf"], wharf_mats, _ = run("wharf", cfg1, stream, nb, "paper_wharf")
+    engines["ii"], mats, pm = run("ii", cfg1, stream, nb, "paper_ii")
+    checks["ii_equals_wharf_at_creation"] = torch.equal(mats[0], wharf_mats[0])
+    checks["ii_shifted_equals_wharf_after_batch1"] = ii_shifted_equal(
+        mats[1], wharf_mats[1], pm)
+    engines["tree"], mats, _ = run("tree", cfg1, stream, nb, "paper_tree")
+    checks["tree_equals_wharf_every_batch"] = all(
+        torch.equal(a, b) for a, b in zip(mats, wharf_mats))
+    del mats, wharf_mats
+    checks["batch1_affected_equal"] = len({e["affected"][0] for e in engines.values()}) == 1
+    checks["tree_affected_equals_wharf"] = (engines["tree"]["affected"]
+                                            == engines["wharf"]["affected"])
+
+    order2 = {}
+    order2["ii"], ii_mats, _ = run("ii", cfg2, n2v, c["n2v_batches"], "paper_ii_n2v")
+    order2["tree"], mats, _ = run("tree", cfg2, n2v, c["n2v_batches"], "paper_tree_n2v")
+    checks["n2v_ii_equals_tree_at_creation"] = torch.equal(ii_mats[0], mats[0])
+    del ii_mats, mats, graph
+    checks["n2v_batch1_affected_equal"] = (order2["ii"]["affected"][0]
+                                           == order2["tree"]["affected"][0])
+    checks["small_card_equals_cpu"] = paper_small(dev, cfg1, cfg2)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 6 checks failed: {failed}")
+    for k in ORDER1_KERNELS:
+        assert launches["paper_wharf"][k] > 0, f"kernel {k} was not launched on Wharf's path"
+    for p in ("paper_ii_n2v", "paper_tree_n2v"):
+        assert launches[p]["intersect_csr"] > 0, f"kernel 5 was not launched on {p}"
+    for p in launches:
+        assert launches[p]["intersect_next"] == 0 and launches[p]["fused_rewalk_step"] == 0
+    wb = engines["wharf"]["nbytes"]
+    res = dict(config=dataclasses.asdict(wcfg), shape=mixed,
+               n_vertices=n, n_walks=n_walks, edges=edges,
+               graph_draw_s=t_graph_draw, stream_draw_s=t_stream_draw,
+               engines=engines, order2=order2,
+               nbytes_ratio={"tree_over_wharf": engines["tree"]["nbytes"] / wb,
+                             "ii_over_wharf": engines["ii"]["nbytes"] / wb},
+               checks=checks, launches=launches)
+    log("reduced_paper", **PAPER_REDUCED)
+    log("paper", **res)
+    return res
+
+
+def paper_small(dev, cfg1, cfg2) -> bool:
+    """II and tree on a 2^12-vertex er graph, on the card and on the CPU
+    from the same keys, order 1 and order 2: the same affected counts and
+    state."""
+    s = PAPER["small"]
+    n = 1 << s["log2_n"]
+    states = {}
+    for d in (dev, torch.device("cpu")):
+        src, dst = er_edges(jr.PRNGKey(7, d), s["graph_edges"], s["log2_n"])
+        stream = mixed_edge_stream(jr.PRNGKey(8, d), s["n_batches"], s["n_ins"],
+                                   s["n_del"], s["log2_n"])
+        for kind, cls in (("ii", IIEngine), ("tree", TreeEngine)):
+            for name, cfg in (("order1", cfg1), ("order2", cfg2)):
+                cfg = cfg._replace(n_walks_per_vertex=s["n_walks_per_vertex"],
+                                   length=s["length"])
+                g = StreamingGraph.from_edges(src, dst, n, 1 << 17, device=d)
+                eng = cls.create(jr.PRNGKey(9, d), g, cfg)
+                eng.rewalk_capacity = n * cfg.n_walks_per_vertex
+                aff = eng.run_stream(jr.PRNGKey(10, d), *stream).cpu().numpy()
+                st = baseline_to_numpy(eng)
+                st["affected"] = aff
+                states.setdefault((kind, name), []).append(st)
+    for key, (a, b) in states.items():
+        for k in a:
+            if not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"small {key}: card != cpu in {k}")
+    return True
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1597,15 +1913,18 @@ def main() -> int:
     kernels += phase_kernels_n2v(dev, kept) + sgns_rows
     log("kernels_n2v")
     del kept
+    paper = phase_paper(dev)
     next(r for r in kernels if r["name"] == "find_next_packed")["prefix_read"] = prefix_read
     # each kernel's launches on the main paths: order 1 (phase 3), the
     # maintainer (phase 3b), the serve path (phase 3c), and the order-2
-    # corpus, unfused and fused batches (phase 4)
+    # corpus, unfused and fused batches (phase 4), and the paper's
+    # comparison (phase 6: Wharf, II, tree; II and tree at order 2)
     for r in kernels:
         by_path = {"order1": full["launches"][r["name"]],
                    "maintainer": maint["launches"][r["name"]],
                    "serve": serve["launches"][r["name"]],
-                   **{p: n2v["launches"][p][r["name"]] for p in n2v["launches"]}}
+                   **{p: n2v["launches"][p][r["name"]] for p in n2v["launches"]},
+                   **{p: paper["launches"][p][r["name"]] for p in paper["launches"]}}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         if r["name"] in OFF_MAIN_PATH:

@@ -8,8 +8,10 @@ reference's dtypes: uint64 codes, uint32 columns) in a flat dict keyed
 EngineState; `state_to_numpy` is its inverse. `maintainer_config_from`,
 `params_from_numpy`/`params_to_numpy` and `maintainer_state_from_numpy`
 do the same for the downstream maintainer (the SGNS tables and its
-optimizer counters). No JAX is imported: the caller turns its arrays into
-numpy first.
+optimizer counters), `baseline_from_numpy`/`baseline_to_numpy` for the II
+and Tree baselines (`core/baselines.py`), and `wharf_config_from` for a
+reference `WharfStreamConfig`. No JAX is imported: the caller turns its
+arrays into numpy first.
 """
 from __future__ import annotations
 
@@ -26,15 +28,15 @@ from repro_torch.core.store import WalkStore
 from repro_torch.core.update import EngineState, PendingBlocks
 from repro_torch.core.walkers import WalkModel
 
+# the reference's kernel backends (FINDNEXT, intersect) -> the port's
+BACKEND_NAMES = {"auto": "auto", "pallas": "cuda", "interpret": "torch",
+                 "pallas-interpret": "torch", "xla-ref": "ref"}
+
 # the reference's megakernel backends -> the port's
-MEGAKERNEL_NAMES = {"off": "off", "auto": "auto", "pallas": "cuda",
-                    "interpret": "torch", "pallas-interpret": "torch",
-                    "xla-ref": "ref"}
+MEGAKERNEL_NAMES = {"off": "off", **BACKEND_NAMES}
 
 # the reference's SGNS backends -> the port's
-SGNS_NAMES = {None: None, "auto": "auto", "pallas": "cuda",
-              "interpret": "torch", "pallas-interpret": "torch",
-              "xla-ref": "ref"}
+SGNS_NAMES = {None: None, **BACKEND_NAMES}
 
 # field -> its representation: "u64" codes, "u32" columns, "i32" columns
 FIELDS = {
@@ -74,11 +76,15 @@ def config_from(cfg) -> WalkConfig:
                       metrics=cfg.metrics, audit_k=cfg.audit_k)
 
 
+def _graph(t: dict, d: dict) -> StreamingGraph:
+    return StreamingGraph(t["graph.codes"], t["graph.offsets"],
+                          t["graph.num_edges"], int(d["graph.n_vertices"]))
+
+
 def state_from_numpy(d: dict, device=None) -> EngineState:
     dev = resolve_device(device)
     t = {k: _FROM[kind](d[k], device=dev) for k, kind in FIELDS.items()}
-    graph = StreamingGraph(t["graph.codes"], t["graph.offsets"],
-                           t["graph.num_edges"], int(d["graph.n_vertices"]))
+    graph = _graph(t, d)
     cols = [t["store." + k] for k in (
         "owner", "code", "epoch", "offsets", "vmin", "vmax", "packed",
         "widths", "anchors_hi", "anchors_lo", "last_hi", "last_lo",
@@ -144,3 +150,52 @@ def maintainer_state_from_numpy(d: dict, device=None):
                                  device=dev)}
     return MaintainerState(engine=state_from_numpy(d, dev), params=params,
                            opt=opt)
+
+
+# the baselines' columns: the II's walk matrix and index, the Tree's four
+# triplet columns
+II_FIELDS = {"walks": "u32", "index.vw": "u64", "index.offsets": "i32"}
+TREE_FIELDS = {"owner": "u32", "walk": "u32", "pos": "u32", "nxt": "u32"}
+GRAPH_FIELDS = {k: v for k, v in FIELDS.items() if k.startswith("graph.")}
+
+
+def baseline_from_numpy(d: dict, cfg: WalkConfig, device=None,
+                        rewalk_capacity: int = 1024):
+    """The graph fields of `FIELDS` plus II_FIELDS (an `IIEngine`) or
+    TREE_FIELDS (a `TreeEngine`) as numpy arrays -> the port's engine."""
+    from repro_torch.core.baselines import IIEngine, InvertedIndex, TreeEngine
+    dev = resolve_device(device)
+    cols = II_FIELDS if "walks" in d else TREE_FIELDS
+    t = {k: _FROM[kind](d[k], device=dev)
+         for k, kind in {**GRAPH_FIELDS, **cols}.items()}
+    graph = _graph(t, d)
+    if "walks" in d:
+        index = InvertedIndex(t["index.vw"], t["index.offsets"])
+        return IIEngine(graph, t["walks"], index, cfg,
+                        rewalk_capacity=rewalk_capacity)
+    return TreeEngine(graph, *(t[k] for k in TREE_FIELDS), cfg,
+                      rewalk_capacity=rewalk_capacity)
+
+
+def baseline_to_numpy(eng) -> dict:
+    """An `IIEngine` or `TreeEngine` -> the dict `baseline_from_numpy`
+    reads, in the reference's dtypes."""
+    cols = II_FIELDS if hasattr(eng, "walks") else TREE_FIELDS
+    out = {"graph.n_vertices": eng.graph.n_vertices}
+    for k, kind in {**GRAPH_FIELDS, **cols}.items():
+        obj, _, name = k.rpartition(".")
+        val = getattr(getattr(eng, obj) if obj else eng, name)
+        out[k] = _TO[kind](val)
+    return out
+
+
+def wharf_config_from(cfg):
+    """A reference `WharfStreamConfig` -> the port's, its FINDNEXT,
+    intersect and megakernel backends under the port's names."""
+    from repro_torch.configs.wharf_stream import WharfStreamConfig
+    kw = {f.name: getattr(cfg, f.name)
+          for f in dataclasses.fields(WharfStreamConfig)}
+    for k in ("find_next_backend", "intersect_backend"):
+        kw[k] = BACKEND_NAMES[kw[k]]
+    kw["megakernel"] = MEGAKERNEL_NAMES[kw["megakernel"]]
+    return WharfStreamConfig(**kw)

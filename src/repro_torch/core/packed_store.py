@@ -6,7 +6,9 @@ FINDNEXT backends:
               default for tensors on the card
     "torch" — its plain PyTorch version, the default on the CPU
     "ref"   — the scan over the uncompressed codes (WalkStore._scan_ref)
-An explicit "cuda" request for tensors on the CPU raises.
+An explicit "cuda" request for tensors on the CPU raises. A request of None
+or "auto" takes the process-wide default (`set_default_backend`), else the
+device's own; the candidate window K likewise (`set_default_window`).
 """
 from __future__ import annotations
 
@@ -16,18 +18,52 @@ from typing import Optional
 
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch._u64 import BIAS, hi32, lo32, u32_bits
 from repro_torch.kernels import ops
 from repro_torch.kernels.delta import CHUNK, encode_chunks, packed_nbytes
 from repro_torch.kernels.range_search import find_next_packed_plain
 
 BACKENDS = ("cuda", "torch", "ref")
-DEFAULT_WINDOW = 8    # K candidate chunks per query
+
+_default_backend: Optional[str] = None   # None -> by device
+_default_window: int = 8                 # K candidate chunks per query
+
+
+def set_default_backend(name: Optional[str]) -> None:
+    """Install the process-wide FINDNEXT backend (None/"auto": by device)."""
+    global _default_backend
+    if name in (None, "auto"):
+        _default_backend = None
+        return
+    if name not in BACKENDS:
+        raise ValueError(f"unknown find_next backend {name!r}; "
+                         f"expected one of {BACKENDS + ('auto',)}")
+    _default_backend = name
+
+
+def get_default_backend(device=None) -> str:
+    """The backend a request of None resolves to for tensors on `device`
+    (the card unless the caller asks for the CPU)."""
+    return resolve_backend(None, resolve_device(device))
+
+
+def set_default_window(k: int) -> None:
+    global _default_window
+    if k < 1:
+        raise ValueError("find_next window must be >= 1 chunk")
+    _default_window = int(k)
+
+
+def get_default_window() -> int:
+    return _default_window
 
 
 def resolve_backend(name: Optional[str], device: torch.device) -> str:
-    """None/"auto" -> "cuda" on the card, "torch" on the CPU."""
-    if name in (None, "auto"):
+    """None/"auto" -> the installed default, else "cuda" on the card and
+    "torch" on the CPU. "cuda" for tensors off the card raises."""
+    name = _default_backend if name in (None, "auto") else name
+    if name is None:
         return "cuda" if device.type == "cuda" else "torch"
     if name not in BACKENDS:
         raise ValueError(f"unknown find_next backend {name!r}; "

@@ -159,7 +159,7 @@ class WalkStore:
         if backend == "ref":
             return self._scan_ref(lo, hi, f, want_epoch)
 
-        k = window or packed_store.DEFAULT_WINDOW
+        k = window or packed_store.get_default_window()
         c0 = lo // CHUNK
         c1 = torch.maximum(hi - 1, lo) // CHUNK
         cidx = (c0[:, None] + torch.arange(k, device=self.device)[None]

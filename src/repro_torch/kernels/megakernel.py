@@ -277,7 +277,7 @@ def fused_scan(key, graph, store, pending, walk_ids, lane_valid, p_min,
     capacity = walk_ids.shape[0]
     model = cfg.model
     factorized = model.order == 2 and model.sampler == "factorized"
-    k_chunks = window or packed_store.DEFAULT_WINDOW
+    k_chunks = window or packed_store.get_default_window()
     view = store if pending is None else Overlay.build(store, pending)
     inv_p, inv_q = intersect.inverse_weights(model.p, model.q)
     owners = torch.empty((capacity, length), dtype=torch.int32, device=dev)

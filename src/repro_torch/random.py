@@ -173,17 +173,12 @@ def _randint32(key, shape, minval, maxval):
     return (out - (1 << 31)).to(torch.int32).reshape(full)
 
 
-def uniform(key: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
-    """`jax.random.uniform(key, shape, dtype)` on [0, 1), for each key of
-    `key` ([..., 2]) -> [..., *shape].
-
-    The mantissa of 1.0 is filled from the top random bits (32-bit:
-    bits1 ^ bits2 of the counter's threefry; 64-bit: bits1 << 32 | bits2)
-    and 1.0 is subtracted, as `jax._src.random._uniform`; the scale by
-    (1 - 0) and the max with 0 change no value."""
+def _unit_floats(key: torch.Tensor, shape, dtype) -> torch.Tensor:
+    """The [0, 1) floats of `jax._src.random._uniform`: the mantissa of
+    1.0 filled from the top random bits (32-bit: bits1 ^ bits2 of the
+    counter's threefry; 64-bit: bits1 << 32 | bits2), less 1.0."""
     full = _draw_shape(key, shape)
-    n = math.prod(tuple(shape))
-    b1, b2 = _iota_bits(key, n)
+    b1, b2 = _iota_bits(key, math.prod(tuple(shape)))
     if dtype == torch.float32:
         bits = ((b1 ^ b2) >> 9) | 0x3F800000
         out = bits.to(torch.int32).view(torch.float32) - 1.0
@@ -193,6 +188,68 @@ def uniform(key: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
     else:
         raise TypeError(f"uniform: float32 or float64, got {dtype}")
     return out.reshape(full)
+
+
+def uniform(key: torch.Tensor, shape=(), dtype=torch.float32, minval=0.0,
+            maxval=1.0) -> torch.Tensor:
+    """`jax.random.uniform(key, shape, dtype, minval, maxval)` for each key
+    of `key` ([..., 2]) -> [..., *shape]; `minval`/`maxval` are scalars or
+    tensors that broadcast against `shape`.
+
+    As `jax._src.random._uniform`: the [0, 1) floats scaled as
+    `floats * (maxval - minval) + minval`, which XLA's CPU backend
+    contracts into one FMA (`fma32` / `fma64`), then the max with minval.
+    On [0, 1) the scale changes no value and is skipped."""
+    floats = _unit_floats(key, shape, dtype)
+    if isinstance(minval, (int, float)) and isinstance(maxval, (int, float)) \
+            and (minval, maxval) == (0, 1):
+        return floats
+    lo = torch.as_tensor(minval, dtype=dtype, device=key.device)
+    hi = torch.as_tensor(maxval, dtype=dtype, device=key.device)
+    fma = fma32 if dtype == torch.float32 else fma64
+    return torch.maximum(lo, fma(floats, hi - lo, lo))
+
+
+def gumbel(key: torch.Tensor, shape=(), dtype=torch.float64) -> torch.Tensor:
+    """`jax.random.gumbel(key, shape, dtype)` in its default mode "low":
+    -log(-log(u)), u uniform on [finfo.tiny, 1). float64 is the reference's
+    default under x64.
+
+    The uniforms are bit for bit. float32's logs are XLA's own (`_log32`);
+    float64's are torch's, which differ from XLA's in the last bit for a
+    few draws in a thousand: an argmax over these values (`categorical`)
+    changes only where two candidates lie within an ulp or two, ~1e-16
+    relative a draw."""
+    tiny = torch.finfo(dtype).tiny
+    u = uniform(key, shape, dtype, minval=tiny, maxval=1.0)
+    if dtype == torch.float32:
+        return -_log32(-_log32(u))
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                shape=None) -> torch.Tensor:
+    """`jax.random.categorical(key, logits, axis=-1, shape)` with
+    replacement: argmax over the last axis of gumbel noise of shape
+    `shape + (k,)` plus the logits (their dtype), the first index on ties
+    -> int64 [..., *shape] for each key of `key`."""
+    batch = tuple(logits.shape[:-1])
+    shape = batch if shape is None else tuple(shape)
+    if shape[len(shape) - len(batch):] != batch:
+        raise ValueError(f"categorical: shape {shape} does not end in the "
+                         f"logits' batch shape {batch}")
+    noise = gumbel(key, shape + (logits.shape[-1],), logits.dtype)
+    return torch.argmax(noise + logits, dim=-1)
+
+
+def bernoulli(key: torch.Tensor, p=0.5, shape=None) -> torch.Tensor:
+    """`jax.random.bernoulli(key, p, shape)` (mode "low"): uniform of p's
+    dtype < p. A Python float p is float64, as under x64."""
+    if not isinstance(p, torch.Tensor):
+        p = torch.tensor(p, dtype=torch.float64)
+    p = p.to(key.device)
+    shape = tuple(p.shape) if shape is None else tuple(shape)
+    return uniform(key, shape, p.dtype) < p
 
 
 # XLA's float32 erf_inv (the chlo decomposition): Giles' single-precision
@@ -226,6 +283,23 @@ _SQRT_HALF = 0.707106781186547524
 _FLT_MIN = 1.17549435e-38
 
 
+def _two_sum(a, b):
+    """a + b rounded, and its exact error (Knuth's TwoSum)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _round_odd(s, err):
+    """s + err rounded to odd, for s = RN(x + y) and err its exact error:
+    an inexact sum whose last bit is even steps once away from s towards
+    err. Rounding that once more to nearest rounds x + y only once."""
+    bits = s.view(torch.int64)
+    odd = (err != 0) & ((bits & 1) == 0)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    return torch.where(odd, bits + step, bits).view(torch.float64)
+
+
 def fma32(a, b, c):
     """float32 fused multiply-add a*b + c, rounded once, from float64 ops
     (the same on the CPU and the card): the f32 product is exact in f64,
@@ -237,13 +311,31 @@ def fma32(a, b, c):
     f64 = torch.float64
     p = a.to(f64) * b.to(f64)
     c = torch.as_tensor(c, dtype=f64, device=p.device)
-    s = p + c
-    bb = s - p
-    err = (p - (s - bb)) + (c - bb)
-    bits = s.view(torch.int64)
-    odd = (err != 0) & ((bits & 1) == 0)
-    step = torch.where((err > 0) == (s > 0), 1, -1)
-    return torch.where(odd, bits + step, bits).view(f64).to(torch.float32)
+    return _round_odd(*_two_sum(p, c)).to(torch.float32)
+
+
+_SPLITTER = 134217729.0   # 2^27 + 1: Veltkamp's split of a double
+
+
+def _split(a):
+    t = a * _SPLITTER
+    hi = t - (t - a)
+    return hi, a - hi
+
+
+def fma64(a, b, c):
+    """float64 fused multiply-add a*b + c, rounded once (Boldo and
+    Melquiond's emulation): the product exactly as hi + lo (Dekker), then
+    RN(th + RO(tl + lo)) with (th, tl) = TwoSum(c, hi). Exact for operands
+    whose product neither overflows nor underflows (|a|, |b| < 2^996 here:
+    uniform's [0, 1) floats and span)."""
+    c = torch.as_tensor(c, dtype=torch.float64, device=a.device)
+    hi = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    lo = ((ah * bh - hi) + ah * bl + al * bh) + al * bl
+    th, tl = _two_sum(c, hi)
+    return th + _round_odd(*_two_sum(tl, lo))
 
 
 def _f32(v, like):
@@ -251,9 +343,10 @@ def _f32(v, like):
 
 
 def _log32(a):
-    """XLA's f32 log of a > 0 (a is 1 + x >= 2^-24 here, never 0, inf or
-    NaN): the mantissa reduced to [sqrt(1/2) - 1, sqrt(2) - 1), the
-    polynomial with FMA where XLA's CPU code contracts it."""
+    """XLA's f32 log of a normal float a > 0 (1 + x >= 2^-24 in log1p,
+    gumbel's uniforms and their logs; never 0, inf or NaN): the mantissa
+    reduced to [sqrt(1/2) - 1, sqrt(2) - 1), the polynomial with FMA where
+    XLA's CPU code contracts it."""
     f32 = torch.float32
     bits = torch.maximum(a, _f32(_FLT_MIN, a)).view(torch.int32)
     m = ((bits & 0x7FFFFF) | 0x3F000000).view(f32)
@@ -314,14 +407,7 @@ def normal(key: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
     with the reference (see `erfinv32`)."""
     if dtype != torch.float32:
         raise TypeError(f"normal: float32 only, got {dtype}")
-    f32 = torch.float32
-    full = _draw_shape(key, shape)
-    b1, b2 = _iota_bits(key, math.prod(tuple(shape)))
-    bits = ((b1 ^ b2) >> 9) | 0x3F800000
-    floats = bits.to(torch.int32).view(f32) - 1.0
-    lo = torch.tensor(np.nextafter(np.float32(-1), np.float32(0)), dtype=f32,
-                      device=key.device)
-    hi = torch.tensor(1.0, dtype=f32, device=key.device)
-    u = torch.maximum(lo, floats * (hi - lo) + lo)
-    sqrt2 = torch.tensor(np.sqrt(2.0), dtype=f32, device=key.device)
-    return (sqrt2 * erfinv32(u)).reshape(full)
+    lo = float(np.nextafter(np.float32(-1), np.float32(0)))
+    u = uniform(key, shape, torch.float32, minval=lo, maxval=1.0)
+    sqrt2 = torch.tensor(np.sqrt(2.0), dtype=torch.float32, device=key.device)
+    return sqrt2 * erfinv32(u)

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card (bit for bit; kernel 7, the f32 SGNS step, within stated
 tolerances); and the engine on the card against the engine on the CPU,
-order 1 and order 2 (both samplers, unfused and fused), and the
-downstream maintainer.
+order 1 and order 2 (both samplers, unfused and fused), the
+downstream maintainer, the stream generators and the II and tree
+baselines.
 
 Run on a machine with an NVIDIA sm_90a card:  pytest -m cuda tests/test_torch_*.py
 Without a card every test here skips (decided inside the fixture). This
@@ -688,3 +689,118 @@ def test_metrics_on_card_equal_cpu(dev):
     a, b = state_to_numpy(card.engine.state), state_to_numpy(off.engine.state)
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_generators_on_card_equal_cpu(dev):
+    """The stream generators and their draws on the card equal the CPU's:
+    ids bit for bit (the f64 gumbel noise through the card's log), the
+    uniforms, bernoulli and cora_like's features and labels."""
+    from repro_torch.data import streams
+    cpu = torch.device("cpu")
+    for name, fn in (
+            ("rmat", lambda k: streams.rmat_edges(k, 1 << 16, 18)),
+            ("er", lambda k: streams.er_edges(k, 100_003, 12)),
+            ("skewed", lambda k: streams.skewed_edges(k, 4097, 10, 10.0)),
+            ("stream", lambda k: streams.edge_batch_stream(k, 3, 1000, 18)),
+            ("mixed", lambda k: streams.mixed_edge_stream(k, 4, 1000, 200, 18)),
+            ("cora", lambda k: (*streams.cora_like(k)[0], *streams.cora_like(k)[1:])),
+            ("tokens", lambda k: (streams.token_stream(k, 4, 33, 50_000),)),
+            ("uniform64", lambda k: (jr.uniform(k, (1001, 4), torch.float64, -1.7, 3.3),)),
+            ("uniform32", lambda k: (jr.uniform(k, (1001, 4), torch.float32, -1.7, 3.3),)),
+            ("gumbel32", lambda k: (jr.gumbel(k, (1 << 16,), torch.float32),)),
+            ("bernoulli", lambda k: (jr.bernoulli(k, 0.01, (333, 77)),))):
+        got = fn(jr.PRNGKey(3, dev))
+        want = fn(jr.PRNGKey(3, cpu))
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda"
+            assert torch.equal(g.cpu(), w), name
+    g64 = jr.gumbel(jr.PRNGKey(4, dev), (1 << 16,)).cpu()
+    torch.testing.assert_close(g64, jr.gumbel(jr.PRNGKey(4, cpu), (1 << 16,)),
+                               rtol=5e-16, atol=5e-16)
+
+
+def _baseline_pair(dev, kind, model):
+    """An II or tree engine on the card and on the CPU from the same keys,
+    a 2^10-vertex er graph and a 3-batch mixed stream -> the two engines
+    and their affected counts."""
+    from repro_torch.core.baselines import IIEngine, TreeEngine
+    from repro_torch.data import streams
+    cls = {"ii": IIEngine, "tree": TreeEngine}[kind]
+    cfg = WalkConfig(n_walks_per_vertex=4, length=16, model=model)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        src, dst = streams.er_edges(jr.PRNGKey(1, d), 10_000, 10)
+        stream = streams.mixed_edge_stream(jr.PRNGKey(2, d), 3, 100, 20, 10)
+        g = StreamingGraph.from_edges(src, dst, 1024, 1 << 16, device=d)
+        eng = cls.create(jr.PRNGKey(3, d), g, cfg)
+        eng.rewalk_capacity = 4096
+        out.append((eng, eng.run_stream(jr.PRNGKey(4, d), *stream).cpu()))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["ii", "tree"])
+@pytest.mark.parametrize("model", ["order1", "order2-factorized"])
+def test_baselines_on_card_equal_cpu(dev, kind, model):
+    """II and tree on the card (kernel 5 at order 2) = on the CPU: the
+    affected counts and every column, bit for bit."""
+    from repro_torch.convert import baseline_to_numpy
+    from repro_torch.core.walkers import WalkModel
+    m = WalkModel() if model == "order1" else WalkModel(
+        order=2, p=0.5, q=2.0, sampler="factorized", dmax=128)
+    ops.reset_launches()
+    (card, a1), (cpu, a2) = _baseline_pair(dev, kind, m)
+    assert torch.equal(a1, a2)
+    if model != "order1":
+        assert ops.launches["intersect_csr"] > 0
+    x, y = baseline_to_numpy(card), baseline_to_numpy(cpu)
+    for k in x:
+        np.testing.assert_array_equal(x[k], y[k], err_msg=k)
+
+
+def test_tree_equals_wharf_and_shifted_ii_on_card(dev):
+    """Phase 6's cross-checks on the card at a small size: from one corpus
+    key and stream key, batch by batch, the tree's walks = Wharf's at order
+    1, batch 1's affected counts equal across the three, and after batch 1
+    the II = the tree shifted by the reference's one column."""
+    import chip_smoke
+    from repro_torch.core.baselines import IIEngine, TreeEngine
+    from repro_torch.data import streams
+    cfg = WalkConfig(n_walks_per_vertex=4, length=16)
+    src, dst = streams.er_edges(jr.PRNGKey(1, dev), 10_000, 10)
+    stream = streams.mixed_edge_stream(jr.PRNGKey(2, dev), 3, 100, 20, 10)
+    g = StreamingGraph.from_edges(src, dst, 1024, 1 << 16, device=dev)
+    key = jr.PRNGKey(4, dev)
+    engines = {"wharf": chip_smoke.paper_engine(
+        "wharf", g, cfg, jr.PRNGKey(3, dev), 4096, 2,
+        dict(merge_policy="on-demand", merge_impl="interleave"))}
+    for kind, cls in (("ii", IIEngine), ("tree", TreeEngine)):
+        engines[kind] = cls.create(jr.PRNGKey(3, dev), g, cfg)
+        engines[kind].rewalk_capacity = 4096
+    ii0 = engines["ii"].walks
+    for i in range(3):
+        aff = {k: chip_smoke.paper_batch(e, stream, key, i) for k, e in engines.items()}
+        m = {k: chip_smoke.walk_matrix_of(e) for k, e in engines.items()}
+        assert torch.equal(m["tree"], m["wharf"]) and aff["tree"] == aff["wharf"]
+        chip_smoke.tree_checks(engines["tree"])
+        if i == 0:
+            assert aff["ii"] == aff["wharf"]
+            pm = chip_smoke.first_touched(ii0, stream, 0, 1024)
+            chip_smoke.ii_checks(ii0, engines["ii"], pm)
+            assert chip_smoke.ii_shifted_equal(m["ii"], m["tree"], pm)
+
+
+def test_default_findnext_backend_guards(dev):
+    """The process-wide FINDNEXT default: "cuda" serves card tensors and
+    raises on CPU tensors; "auto" restores the per-device pick."""
+    from repro_torch.core import packed_store
+    saved = packed_store._default_backend
+    try:
+        packed_store.set_default_backend("cuda")
+        assert packed_store.get_default_backend(dev) == "cuda"
+        with pytest.raises(ValueError, match="card"):
+            packed_store.resolve_backend(None, torch.device("cpu"))
+        packed_store.set_default_backend("auto")
+        assert packed_store.resolve_backend(None, torch.device("cpu")) == "torch"
+        assert packed_store.get_default_backend() == "cuda"
+    finally:
+        packed_store._default_backend = saved

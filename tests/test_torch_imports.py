@@ -62,7 +62,11 @@ def test_every_module_imports_without_a_card():
                                     "repro_torch.core.ppr",
                                     "repro_torch.obs.export",
                                     "repro_torch.obs.staleness",
-                                    "repro_torch.serve"])
+                                    "repro_torch.serve",
+                                    "repro_torch.data.streams",
+                                    "repro_torch.core.baselines",
+                                    "repro_torch.configs",
+                                    "repro_torch.configs.wharf_stream"])
 def test_each_module_imports_first_in_a_fresh_process(module):
     """The core and the kernel wrappers import each other; any one of them
     imported first must still work."""
@@ -86,6 +90,12 @@ def test_entry_points_raise_without_a_card():
         jr.PRNGKey(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.params_from_numpy({"in": [[0.0]], "out": [[0.0]]})
+    from repro_torch.core import packed_store
+    from repro_torch.data import streams
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        streams.rmat_edges([0, 1], 4, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        packed_store.get_default_backend()
 
 
 def test_kernel_wrappers_never_fall_back():

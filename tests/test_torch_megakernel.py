@@ -40,7 +40,7 @@ def test_fused_matches_unfused_and_reference(model, monkeypatch):
     want = jax_state_to_numpy(jeng.state)
     if model == "n2v-factorized":
         # one candidate chunk per FINDNEXT: wide ranges take the fix-up scan
-        monkeypatch.setattr(packed_store, "DEFAULT_WINDOW", 1)
+        monkeypatch.setattr(packed_store, "_default_window", 1)
     for mk, eng in engines.items():
         eng.run_stream(np.asarray(jax.random.PRNGKey(11)), *stream)
         got = convert.state_to_numpy(eng.state)

@@ -167,3 +167,100 @@ def test_fma32_rounds_once():
     assert got.tolist() == [up, -up, 8.75]
     twice = (a.double() * a.abs().double() + c.double()).float()
     assert twice.tolist()[:2] == [1.0 + 2**-11, -(1.0 + 2**-11)]
+
+
+# the draws of the stream generators (data/streams.py): shapes with a
+# [n, 4] quadrant axis and odd lengths
+DRAW_SHAPES = ((), (7,), (1001,), (257, 4), (3, 33, 4))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_uniform_range_matches_jax(dtype):
+    """`floats * (maxval - minval) + minval` is one FMA in XLA's CPU code:
+    `fma32` / `fma64` round it once, as it does; then the max with minval."""
+    tdt = getattr(torch, dtype)
+    bounds = ((-1.7, 3.3), (0.25, 0.5), (-1e3, 1e-3), (2.0, 2.0),
+              (np.finfo(dtype).tiny, 1.0), (1e-300, 7.0))
+    for seed in range(0, 40, 7):
+        kj, kt = jax.random.PRNGKey(seed), jr.PRNGKey(seed, device="cpu")
+        for shape in DRAW_SHAPES:
+            for lo, hi in bounds:
+                want = np.asarray(jax.random.uniform(kj, shape, dtype, lo, hi))
+                got = jr.uniform(kt, shape, tdt, lo, hi).numpy()
+                assert got.dtype == want.dtype and got.shape == want.shape
+                np.testing.assert_array_equal(got.reshape(-1).view(np.uint8),
+                                              want.reshape(-1).view(np.uint8))
+    # array bounds broadcast against the shape
+    lo = np.linspace(-2, 1, 4).astype(dtype)
+    want = jax.random.uniform(jax.random.PRNGKey(3), (9, 4), dtype, lo, lo + 3)
+    got = jr.uniform(jr.PRNGKey(3, device="cpu"), (9, 4), tdt,
+                     torch.from_numpy(lo), torch.from_numpy(lo + 3))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_fma64_rounds_once():
+    """(1 + 2^-27)(1 + 2^-26) = 1 + 2^-26 + 2^-27 + 2^-53 is the midpoint of
+    two doubles, and + 2^-110 puts the exact sum just above it: the product
+    rounded first ties to even (down) and drops it; one rounding goes up."""
+    a = torch.tensor([1.0 + 2**-27, -(1.0 + 2**-27), 3.0], dtype=torch.float64)
+    b = torch.tensor([1.0 + 2**-26, 1.0 + 2**-26, 3.0], dtype=torch.float64)
+    c = torch.tensor([2.0**-110, -(2.0**-110), -0.25], dtype=torch.float64)
+    got = jr.fma64(a, b, c)
+    up = 1.0 + 2**-26 + 2**-27 + 2**-52
+    assert got.tolist() == [up, -up, 8.75]
+    down = 1.0 + 2**-26 + 2**-27
+    assert (a * b + c).tolist()[:2] == [down, -down]
+
+
+def test_gumbel_matches_jax():
+    """float32: bit for bit (XLA's own f32 log, `_log32`). float64: the
+    uniforms are bit for bit, the logs torch's, which differ from XLA's f64
+    log in the last bit for a few draws in a thousand; -log(-log u) keeps
+    that an absolute error of a few 1e-16 (its size where |g| < 1)."""
+    for seed in range(4):
+        kj, kt = jax.random.PRNGKey(seed), jr.PRNGKey(seed, device="cpu")
+        for shape in DRAW_SHAPES + ((1 << 16,),):
+            want = np.asarray(jax.random.gumbel(kj, shape, jnp.float32))
+            got = jr.gumbel(kt, shape, torch.float32).numpy()
+            np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+            want = np.asarray(jax.random.gumbel(kj, shape))
+            got = jr.gumbel(kt, shape).numpy()
+            assert got.dtype == want.dtype == np.float64
+            np.testing.assert_allclose(got, want, rtol=5e-16, atol=5e-16)
+            assert np.mean(got == want) > 0.98
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_categorical_ids_match_jax(dtype):
+    """The sampled ids are bit for bit: an f64 draw flips only where two
+    candidates' noisy logits lie within an ulp or two (see gumbel)."""
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(0)
+    for probs in ([0.5, 0.1, 0.1, 0.3], [0.25] * 4, [0.9, 0.05, 0.03, 0.02]):
+        logits = np.log(np.asarray(probs, dtype))
+        for seed in range(3):
+            kj, kt = jax.random.PRNGKey(seed), jr.PRNGKey(seed, device="cpu")
+            for shape in ((1,), (4097,), (3, 65)):
+                want = np.asarray(jax.random.categorical(kj, logits, shape=shape))
+                got = jr.categorical(kt, torch.from_numpy(logits), shape).numpy()
+                assert got.dtype == want.dtype == np.int64
+                np.testing.assert_array_equal(got, want)
+    # batched logits [n, k]: one categorical a row; and a leading sample axis
+    batch = np.log(rng.dirichlet(np.ones(5), size=33)).astype(dtype)
+    kj, kt = jax.random.PRNGKey(9), jr.PRNGKey(9, device="cpu")
+    for shape in (None, (7, 33)):
+        want = np.asarray(jax.random.categorical(kj, batch, shape=shape))
+        got = jr.categorical(kt, torch.from_numpy(batch), shape).numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+def test_bernoulli_matches_jax():
+    for seed in range(5):
+        kj, kt = jax.random.PRNGKey(seed), jr.PRNGKey(seed, device="cpu")
+        for p, shape in ((0.01, (33, 77)), (0.5, (1001,)), (0.8, ())):
+            want = np.asarray(jax.random.bernoulli(kj, p, shape))
+            np.testing.assert_array_equal(jr.bernoulli(kt, p, shape).numpy(), want)
+        p = np.linspace(0, 1, 19).astype(np.float32)
+        want = np.asarray(jax.random.bernoulli(kj, p))
+        np.testing.assert_array_equal(jr.bernoulli(kt, torch.from_numpy(p)).numpy(),
+                                      want)
