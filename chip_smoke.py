@@ -80,6 +80,24 @@ every phase passed):
      edge. Then II and tree over 2 order-2 batches of the
      stream_10k_n2v_factorized shape (kernel 5), and both on a 2^12-vertex
      graph on the card against the CPU, order 1 and order 2
+  7. the sharded engine (distr/sharded.py) with 4 gloo ranks spawned on the
+     one card (NCCL refuses two ranks on one device; gloo stages the CUDA
+     tensors through host memory itself). 7a at 2^12 vertices: the same
+     config, keys and mixed stream through both merge policies and once
+     with metrics; the unsharded graph, every store array, slot_epoch and
+     the traverse = the single-host card engine, each shard's card state
+     = the same rank's CPU state, metrics ON = OFF, combined counters card
+     = CPU, 1 + length collectives a batch; then one rank on NCCL = the
+     single-host engine. 7b at full width: wharf-stream's
+     stream_10k_sharded shape (10,000 inserts + 2,000 deletes a batch,
+     on-demand) at 2^17 vertices on an er graph, 4 batches, after the
+     single-host card engine on the same config and keys (its merged
+     state kept on the host as .npy, its card memory freed first): each
+     rank = its vertex range of the single-host state, bit for bit, the
+     affected counts equal, no overflow; per batch the synced ms between
+     barriers (max over ranks), the all_reduce's and all_to_alls' ms, the
+     handoff volume and cross-shard share, each rank's peak memory and
+     the card's, and each kernel's launches on this path
 Phase 2 also runs a small maintainer on the card against the CPU and
 against a plain engine, and the order-1 stream with `WalkConfig(metrics=
 True)` on the card: its state equals the plain run's, its counters equal
@@ -90,18 +108,22 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(_ROOT, "src"))
 
 from repro_torch import random as jr  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch import convert  # noqa: E402
 from repro_torch.convert import baseline_to_numpy, state_to_numpy  # noqa: E402
 from repro_torch.core.baselines import IIEngine, TreeEngine  # noqa: E402
 from repro_torch.data.streams import edge_batch_stream, er_edges, mixed_edge_stream  # noqa: E402
@@ -113,11 +135,17 @@ from repro_torch.core.update import WalkEngine  # noqa: E402
 from repro_torch.core.store import PAD_EPOCH  # noqa: E402
 from repro_torch.core.utils import seg_searchsorted  # noqa: E402
 from repro_torch.core.walkers import WalkModel  # noqa: E402
+from repro_torch.core.graph import SENTINEL, edge_code  # noqa: E402
+from repro_torch.distr import collectives, ranks  # noqa: E402
+from repro_torch.distr.sharded import (consolidate, local_shard_state,  # noqa: E402
+                                       sharded_run_stream, sharded_stream_step,
+                                       unshard_state)
 from repro_torch.downstream import EmbeddingMaintainer, MaintainerConfig  # noqa: E402
 from repro_torch.kernels import _build, delta, intersect, megakernel, ops  # noqa: E402
 from repro_torch.kernels import range_search, sgns, szudzik  # noqa: E402
 from repro_torch.core import update  # noqa: E402
 from repro_torch.obs import export, slo  # noqa: E402
+from repro_torch.obs.metrics import tree_map  # noqa: E402
 from repro_torch.serve import WalkQueryService, batched  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
@@ -178,6 +206,29 @@ PAPER = dict(log2_n=18, edge_capacity=1 << 25, max_pending=4,
 PAPER_REDUCED = dict(REDUCED, n2v_batches=(
     "8 -> 2 order-2 batches (stream_10k_n2v_factorized), II and tree only "
     "(the run's time limit)"))
+
+# phase 7: the sharded engine, S gloo ranks on the one card. 7a at 2^12
+# vertices (card ranks = CPU ranks = the single-host engine); 7b at full
+# width, wharf-stream's stream_10k_sharded shape
+# (src/repro/configs/wharf_stream.py:172), cut as CONFIG and further by the
+# four ranks' memory (PERF.md §6 has the reckoning)
+SHARDED = dict(shards=4, seeds=dict(graph=3030, stream=3031, corpus=0, update=1),
+               small=dict(log2_n=12, graph_edges=(1 << 12) * 10, edge_capacity=1 << 17,
+                          n_batches=4, n_ins=200, n_del=40, n_walks_per_vertex=4,
+                          length=16, max_pending=2),
+               full=dict(log2_n=17, graph_edges=(1 << 17) * 50, edge_capacity=1 << 24,
+                         n_batches=4, max_pending=2))
+SHARDED_REDUCED = dict(
+    n_vertices="2^20 -> 2^17 (four ranks on one card, each with the reference's "
+               "[2, n_walks * 80] pending blocks: ~20 GB a rank at 2^18 by the "
+               "reckoning, over the card's 80 GB)",
+    edge_capacity="2^27 -> 2^24 (mean degree 100 at 2^17 vertices)",
+    n_shards="8 -> 4 ranks, all on the one card (gloo: NCCL refuses two ranks "
+             "on one device)",
+    n_batches="8 -> 4 (the forced merge falls at batch 3; the run's time limit)",
+    max_pending="8 -> 2 (device memory)",
+    rewalk_capacity="2^20 -> n_walks, as phase 3; the slab follows it (the "
+                    "config's default, the whole lane capacity)")
 
 KERNEL_META = {
     "szudzik_pair": ("src/repro_torch/kernels/csrc/szudzik.cu",
@@ -1885,6 +1936,344 @@ def paper_small(dev, cfg1, cfg2) -> bool:
     return True
 
 
+
+# ---------------------------------------------------------------- phase 7
+
+
+def sharded_setup(log2_n: int, edge_capacity: int, max_pending: int, **over):
+    """Phase 7b's configuration: `wharf-stream` and its stream_10k_sharded
+    shape cut to 2^log2_n vertices, rewalk_capacity = n_walks (the slab,
+    the config's default, follows it) -> (config, shape, WalkConfig,
+    ShardSpec). `over` replaces more config fields (phase 7a)."""
+    arch = get_arch("wharf-stream")
+    shape = arch.shapes["stream_10k_sharded"]
+    n = 1 << log2_n
+    wcfg = arch.make_config()
+    wcfg = dataclasses.replace(wcfg, n_vertices=n, edge_capacity=edge_capacity,
+                               max_pending=max_pending, n_shards=SHARDED["shards"],
+                               **over)
+    wcfg = dataclasses.replace(wcfg, rewalk_capacity=n * wcfg.n_walks_per_vertex)
+    return wcfg, shape, wcfg.walk_config(), wcfg.shard_spec()
+
+
+def sharded_start(dev, wcfg, cfg, src, dst, corpus_seed: int):
+    graph = StreamingGraph.from_edges(src, dst, wcfg.n_vertices, wcfg.edge_capacity,
+                                      device=dev)
+    return graph, generate_corpus(jr.PRNGKey(corpus_seed, dev), graph, cfg)
+
+
+def rank_small(rank, p):
+    """A rank of phase 7a: its shard of the same start state on the card and
+    on the CPU, through the stream under both policies (and on-demand once
+    with metrics); states, counters, collective calls and launches back."""
+    p["wcfg"].select_backend(p["card"])
+    out = {}
+    for d in (torch.device(p["card"]), torch.device("cpu")):
+        graph, store = sharded_start(d, p["wcfg"], p["cfg"], p["src"], p["dst"],
+                                     p["seeds"]["corpus"])
+        for name, policy, metrics in (("on-demand", "on-demand", False),
+                                      ("eager", "eager", False),
+                                      ("metrics", "on-demand", True)):
+            st = local_shard_state(graph, store, p["spec"], rank,
+                                   p["wcfg"].rewalk_capacity, p["wcfg"].max_pending)
+            collectives.reset()
+            ops.reset_launches()
+            res = sharded_run_stream(
+                st, jr.PRNGKey(p["seeds"]["update"], d), *p["stream"],
+                cfg=p["cfg"]._replace(metrics=metrics), spec=p["spec"],
+                capacity=p["wcfg"].rewalk_capacity,
+                max_pending=p["wcfg"].max_pending, merge_policy=policy)
+            out[d.type, name] = dict(
+                state=state_to_numpy(res[0]), affected=res[1].cpu().numpy(),
+                calls=dict(collectives.calls), launches=dict(ops.launches),
+                metrics=tree_map(lambda t: t.cpu().numpy(), res[2]) if metrics else None)
+    return out
+
+
+def phase_sharded_small(dev, workdir):
+    """Phase 7a: S = 4 gloo ranks on the card at 2^12 vertices, both merge
+    policies and once with metrics: unsharded = the single-host card engine
+    (graph, every store array, slot_epoch, traverse), per-shard card states
+    = the same ranks' CPU states, metrics ON = OFF, combined counters card =
+    CPU; then S = 1 on NCCL = the single-host engine."""
+    c = SHARDED["small"]
+    seeds = SHARDED["seeds"]
+    wcfg, _, cfg, spec = sharded_setup(
+        c["log2_n"], c["edge_capacity"], c["max_pending"],
+        n_walks_per_vertex=c["n_walks_per_vertex"], length=c["length"])
+    cpu = torch.device("cpu")
+    src, dst = er_edges(jr.PRNGKey(seeds["graph"], cpu), c["graph_edges"], c["log2_n"])
+    stream = mixed_edge_stream(jr.PRNGKey(seeds["stream"], cpu), c["n_batches"],
+                               c["n_ins"], c["n_del"], c["log2_n"])
+    p = dict(card=dev.type, wcfg=wcfg, cfg=cfg, spec=spec, seeds=seeds, src=src.numpy(),
+             dst=dst.numpy(), stream=[a.numpy() for a in stream])
+    nb, cap = c["n_batches"], wcfg.rewalk_capacity
+
+    def single_host(policy):
+        graph, store = sharded_start(dev, wcfg, cfg, p["src"], p["dst"], seeds["corpus"])
+        eng = WalkEngine(graph=graph, store=store, cfg=cfg, merge_policy=policy,
+                         rewalk_capacity=cap, max_pending=wcfg.max_pending)
+        aff = eng.run_stream(jr.PRNGKey(seeds["update"], dev), *p["stream"])
+        eng.merge()
+        return eng, aff.cpu().numpy()
+
+    def same_as_single_host(states, eng, aff, what):
+        graph, store, ovf = unshard_state(states, wcfg.edge_capacity)
+        assert not ovf, f"{what}: overflow"
+        assert torch.equal(graph.codes, eng.graph.codes), f"{what}: graph codes"
+        for f in dataclasses.fields(store):
+            a, b = getattr(store, f.name), getattr(eng.store, f.name)
+            same = torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+            assert same, f"{what}: unsharded store.{f.name} != single-host"
+        w = torch.arange(store.n_walks, device=dev)
+        start = walk_start_vertex(w, cfg.n_walks_per_vertex)
+        assert torch.equal(store.traverse(w, start, cfg.length - 1),
+                           eng.store.traverse(w, start, cfg.length - 1)), \
+            f"{what}: traverse"
+
+    results = ranks.spawn(rank_small, SHARDED["shards"], p, workdir, backend="gloo",
+                          threads=2)
+    checks = {}
+    for name in ("on-demand", "eager"):
+        eng, aff = single_host(name)
+        for r, res in enumerate(results):
+            card, host = res[dev.type, name], res["cpu", name]
+            for k in card["state"]:
+                if not np.array_equal(card["state"][k], host["state"][k]):
+                    raise AssertionError(f"7a {name}: shard {r} card != cpu in {k}")
+            if not np.array_equal(card["affected"], aff):
+                raise AssertionError(f"7a {name}: shard {r} affected != single-host")
+            want = {"all_reduce": nb, "all_to_all": nb * cfg.length}
+            assert card["calls"] == want, (name, r, card["calls"])
+        states = [convert.state_from_numpy(res[dev.type, name]["state"], dev)
+                  for res in results]
+        same_as_single_host(states, eng, aff, f"7a {name}")
+        checks[f"{name}_unsharded_equals_single_host"] = True
+    for r, res in enumerate(results):
+        on, off = res[dev.type, "metrics"]["state"], res[dev.type, "on-demand"]["state"]
+        for k in on:
+            if not np.array_equal(on[k], off[k]):
+                raise AssertionError(f"7a: metrics ON != OFF on shard {r} in {k}")
+    summ = {}
+    for d in (dev.type, "cpu"):
+        ms = [res[d, "metrics"]["metrics"] for res in results]
+        summ[d] = export.summary(tree_map(
+            lambda *ls: torch.stack([torch.from_numpy(np.asarray(x)) for x in ls]), *ms))
+    assert summ[dev.type] == summ["cpu"], "7a: combined counters card != cpu"
+    checks.update(metrics_on_equals_off=True, counters_card_equal_cpu=True)
+    launches = {k: sum(res[dev.type, "on-demand"]["launches"][k] for res in results)
+                for k in ops.KERNELS}
+    for k in ("szudzik_pair", "szudzik_unpair"):
+        assert launches[k] > 0, f"7a: kernel {k} was not launched by the card ranks"
+
+    # S = 1 on NCCL: the route each rank takes when it has a card of its own
+    eng, aff = single_host("on-demand")
+    spec1 = wcfg.shard_spec(1)
+    backend = {"cuda": "nccl", "cpu": "gloo"}[dev.type]   # gloo: a CPU rehearsal
+    dist.init_process_group(backend, init_method="file://" + os.path.join(
+        tempfile.mkdtemp(prefix="nccl_", dir=workdir), "rendezvous"),
+        world_size=1, rank=0)
+    try:
+        graph, store = sharded_start(dev, wcfg, cfg, p["src"], p["dst"], seeds["corpus"])
+        st = local_shard_state(graph, store, spec1, 0, cap, wcfg.max_pending)
+        st, aff1 = sharded_run_stream(st, jr.PRNGKey(seeds["update"], dev), *p["stream"],
+                                      cfg=cfg, spec=spec1, capacity=cap,
+                                      max_pending=wcfg.max_pending)
+        assert dist.get_backend() == backend
+    finally:
+        dist.destroy_process_group()
+    assert np.array_equal(aff1.cpu().numpy(), aff), "7a NCCL: affected"
+    same_as_single_host([st], eng, aff, "7a NCCL S=1")
+    checks["nccl_s1_equals_single_host"] = True
+    log("sharded_small", ok=True, n_vertices=wcfg.n_vertices, shards=spec.n_shards,
+        batches=nb, spec=dataclasses.asdict(spec), checks=checks, summary=summ[dev.type],
+        launches_card_ranks=launches)
+    return checks
+
+
+def rank_full(rank, p):
+    """A rank of phase 7b. It builds the start state in its turn (the ranks
+    one after another, to bound the card's peak), keeps its shard, runs the
+    batches (each bracketed by barriers and synchronized) and the closing
+    merge, and holds its shard against its range of the single-host
+    engine's merged state, read from the .npy files under p["ref"]."""
+    wcfg, cfg, spec, seeds = p["wcfg"], p["cfg"], p["spec"], p["seeds"]
+    wcfg.select_backend(p["card"])
+    dev = torch.device(p["card"])
+    n, cap = wcfg.n_vertices, wcfg.rewalk_capacity
+    for k in range(spec.n_shards):
+        if k == rank:
+            src, dst = er_edges(jr.PRNGKey(seeds["graph"], dev), p["graph_edges"],
+                                p["log2_n"])
+            graph, store = sharded_start(dev, wcfg, cfg, src, dst, seeds["corpus"])
+            state = local_shard_state(graph, store, spec, rank, cap, wcfg.max_pending)
+            del src, dst, graph, store
+            torch.cuda.empty_cache()
+        dist.barrier()
+    stream = mixed_edge_stream(jr.PRNGKey(seeds["stream"], dev), p["n_batches"],
+                               p["shape"]["batch_edges"], p["shape"]["del_edges"],
+                               p["log2_n"])
+    keys = jr.split(jr.PRNGKey(seeds["update"], dev), p["n_batches"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    collectives.reset()
+    collectives.set_timing(True)
+    ops.reset_launches()    # ---- the sharded path, counted from here
+    batches = []
+    for i in range(p["n_batches"]):
+        dist.barrier()
+        torch.cuda.synchronize()
+        sec0 = dict(collectives.seconds)
+        t0 = time.perf_counter()
+        state = sharded_stream_step(state, keys[i], *(x[i] for x in stream), cfg, cap,
+                                    spec, rank, wcfg.max_pending,
+                                    p["shape"]["merge_policy"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        free, total = torch.cuda.mem_get_info()
+        batches.append(dict(
+            ms=ms, affected=int(state.last_affected), n_pending=state.n_pending,
+            all_reduce_ms=(collectives.seconds["all_reduce"] - sec0["all_reduce"]) * 1e3,
+            all_to_all_ms=(collectives.seconds["all_to_all"] - sec0["all_to_all"]) * 1e3,
+            card_used_gb=(total - free) / 1e9, **block_handoff(state, rank, spec)))
+        dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = consolidate(state)
+    torch.cuda.synchronize()
+    merge_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(ops.launches)   # ---- read just after it
+    calls = dict(collectives.calls)
+    collectives.set_timing(False)
+    peak = dict(allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+    return dict(batches=batches, merge_ms=merge_ms, launches=launches, calls=calls,
+                peak=peak, overflow=bool(state.overflow),
+                checks=shard_equals_reference(state, rank, spec, p["ref"], n))
+
+
+def block_handoff(state, rank, spec) -> dict:
+    """The lanes this shard handed on in the batch just run, read from its
+    version block (the pending row just written; on-demand): a non-terminal
+    emitted triplet is a lane routed to the owner of its next vertex, and
+    crosses shards when that is not this shard. The plain unpair (no kernel
+    launch) gives the next vertex."""
+    j = state.n_pending - 1
+    length = state.store.length
+    sel = torch.nonzero(state.pending.epoch[j] != PAD_EPOCH).reshape(-1)
+    sel = sel[(sel % length) < length - 1]
+    _, nxt = pairing.szudzik_unpair(state.pending.code[j][sel])
+    cross = int((nxt // spec.vps != rank).sum())
+    return dict(handoff_sent=int(sel.numel()), handoff_cross=cross)
+
+
+def shard_equals_reference(state, rank, spec, ref, n) -> dict:
+    """This shard against its vertex range of the single-host merged state:
+    the live edge codes, the live triplet rows (and pads after them), the
+    replicated slot_epoch, bit for bit."""
+    dev = state.store.device
+    lo, hi = rank * spec.vps, min((rank + 1) * spec.vps, n)
+    load = lambda name: np.load(os.path.join(ref, name + ".npy"), mmap_mode="r")  # noqa: E731
+    codes = load("graph_codes")
+    bounds = edge_code(torch.tensor([lo, hi]), torch.tensor([0, 0])).numpy()
+    a, b = np.searchsorted(codes, bounds)
+    g = state.graph
+    want = torch.from_numpy(np.array(codes[a:b])).to(dev)
+    graph_ok = (int(g.num_edges) == b - a
+                and torch.equal(g.codes[:b - a], want)
+                and bool((g.codes[b - a:] == SENTINEL).all()))
+    offsets = load("offsets")
+    a, b = int(offsets[lo]), int(offsets[hi])
+    st = state.store
+    store_ok = int(st.offsets[n]) == b - a
+    for f, pad in (("owner", n), ("code", SENTINEL), ("epoch", PAD_EPOCH)):
+        want = torch.from_numpy(np.array(load(f)[a:b])).to(dev)
+        col = getattr(st, f)
+        store_ok = store_ok and torch.equal(col[:b - a], want) and bool(
+            (col[b - a:] == pad).all())
+    slot_ok = torch.equal(st.slot_epoch,
+                          torch.from_numpy(np.array(load("slot_epoch"))).to(dev))
+    return dict(graph=graph_ok, store=store_ok, slot_epoch=slot_ok)
+
+
+def phase_sharded_full(dev, workdir):
+    """Phase 7b: wharf-stream's stream_10k_sharded shape at full width with
+    S = 4 gloo ranks on the one card, against the single-host card engine
+    run first on the same config and keys (its merged state kept on the
+    host, its card memory freed before the ranks start)."""
+    c = SHARDED["full"]
+    seeds = SHARDED["seeds"]
+    wcfg, shape, cfg, spec = sharded_setup(c["log2_n"], c["edge_capacity"],
+                                           c["max_pending"])
+    n, nb, cap = wcfg.n_vertices, c["n_batches"], wcfg.rewalk_capacity
+
+    torch.cuda.reset_peak_memory_stats()
+    (src, dst), _ = sync_time(lambda: er_edges(jr.PRNGKey(seeds["graph"], dev),
+                                               c["graph_edges"], c["log2_n"]))
+    graph, store = sharded_start(dev, wcfg, cfg, src, dst, seeds["corpus"])
+    del src, dst
+    stream = mixed_edge_stream(jr.PRNGKey(seeds["stream"], dev), nb,
+                               shape["batch_edges"], shape["del_edges"], c["log2_n"])
+    eng = WalkEngine(graph=graph, store=store, cfg=cfg,
+                     merge_policy=shape["merge_policy"], rewalk_capacity=cap,
+                     max_pending=wcfg.max_pending)
+    del graph, store
+    aff, t_single = sync_time(lambda: eng.run_stream(jr.PRNGKey(seeds["update"], dev),
+                                                     *stream))
+    _, t_merge = sync_time(eng.merge)
+    assert not eng.mav_overflowed
+    ref = tempfile.mkdtemp(prefix="reference_", dir=workdir)
+    g = eng.graph
+    arrays = dict(graph_codes=g.codes[:int(g.num_edges)], offsets=eng.store.offsets,
+                  owner=eng.store.owner, code=eng.store.code, epoch=eng.store.epoch,
+                  slot_epoch=eng.store.slot_epoch)
+    for name, t in arrays.items():
+        np.save(os.path.join(ref, name + ".npy"), t.cpu().numpy())
+    single = dict(run_stream_s=t_single, merge_s=t_merge,
+                  affected=aff.cpu().tolist(),
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del eng, g, arrays, stream
+    torch.cuda.empty_cache()
+
+    p = dict(card=dev.type, wcfg=wcfg, cfg=cfg, spec=spec, seeds=seeds, shape=shape, ref=ref,
+             n_batches=nb, log2_n=c["log2_n"], graph_edges=c["graph_edges"])
+    results, t_ranks = sync_time(lambda: ranks.spawn(
+        rank_full, spec.n_shards, p, workdir, backend="gloo", threads=2))
+    checks = {"no_overflow": not any(r["overflow"] for r in results)}
+    for k in ("graph", "store", "slot_epoch"):
+        checks[f"unsharded_{k}_equals_single_host"] = all(r["checks"][k] for r in results)
+    checks["affected_equal"] = all(
+        [b["affected"] for b in r["batches"]] == single["affected"] for r in results)
+    checks["collectives_per_batch"] = all(
+        r["calls"] == {"all_reduce": nb, "all_to_all": nb * cfg.length} for r in results)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 7b checks failed: {failed}")
+    launches = {k: sum(r["launches"][k] for r in results) for k in ops.KERNELS}
+    for k in ("szudzik_pair", "szudzik_unpair"):
+        assert launches[k] > 0, f"kernel {k} was not launched on the sharded path"
+    per = [[r["batches"][i] for r in results] for i in range(nb)]
+    sent = [sum(b["handoff_sent"] for b in bs) for bs in per]
+    cross = [sum(b["handoff_cross"] for b in bs) for bs in per]
+    res = dict(
+        config=dataclasses.asdict(wcfg), shape=shape, spec=dataclasses.asdict(spec),
+        n_batches=nb, single_host=single, ranks_s=t_ranks,
+        batch_ms_max_over_ranks=[max(b["ms"] for b in bs) for bs in per],
+        all_reduce_ms_max_over_ranks=[max(b["all_reduce_ms"] for b in bs) for bs in per],
+        all_to_all_ms_max_over_ranks=[max(b["all_to_all_ms"] for b in bs) for bs in per],
+        collectives="gloo on one card: CUDA tensors staged through host memory "
+                    "inside gloo's calls, not NCCL across cards",
+        merge_ms_max_over_ranks=max(r["merge_ms"] for r in results),
+        handoff_sent=sent, handoff_cross=cross,
+        handoff_cross_share=[x / max(y, 1) for x, y in zip(cross, sent)],
+        rank_peak=[r["peak"] for r in results],
+        card_used_gb_max=max(b["card_used_gb"] for r in results for b in r["batches"]),
+        per_rank_batches=[r["batches"] for r in results],
+        checks=checks, launches=launches)
+    log("reduced_sharded", **SHARDED_REDUCED)
+    log("sharded", **res)
+    return res
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1914,17 +2303,25 @@ def main() -> int:
     log("kernels_n2v")
     del kept
     paper = phase_paper(dev)
+    workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=_ROOT)
+    try:
+        phase_sharded_small(dev, workdir)
+        sharded = phase_sharded_full(dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     next(r for r in kernels if r["name"] == "find_next_packed")["prefix_read"] = prefix_read
     # each kernel's launches on the main paths: order 1 (phase 3), the
     # maintainer (phase 3b), the serve path (phase 3c), and the order-2
     # corpus, unfused and fused batches (phase 4), and the paper's
-    # comparison (phase 6: Wharf, II, tree; II and tree at order 2)
+    # comparison (phase 6: Wharf, II, tree; II and tree at order 2), and
+    # the sharded engine's four ranks (phase 7b)
     for r in kernels:
         by_path = {"order1": full["launches"][r["name"]],
                    "maintainer": maint["launches"][r["name"]],
                    "serve": serve["launches"][r["name"]],
                    **{p: n2v["launches"][p][r["name"]] for p in n2v["launches"]},
-                   **{p: paper["launches"][p][r["name"]] for p in paper["launches"]}}
+                   **{p: paper["launches"][p][r["name"]] for p in paper["launches"]},
+                   "sharded": sharded["launches"][r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         if r["name"] in OFF_MAIN_PATH:

@@ -4,12 +4,12 @@
 Backend fields take the port's names: "cuda" (the reference's "pallas"),
 "torch" (its "interpret" and "pallas-interpret"), "ref" (its "xla-ref"),
 and "auto"; `repro_torch.convert.wharf_config_from` carries a reference
-config across. The shard fields are kept for the port's `distr/`, which
-will read them through `shard_spec`.
+config across. `shard_spec` reads the shard fields into the sharded
+engine's `ShardSpec` (distr/sharded.py).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 from repro_torch.configs.base import ArchSpec, register
 from repro_torch.core.corpus import WalkConfig
@@ -73,6 +73,26 @@ class WharfStreamConfig:
                           chunk_b=self.chunk_b,
                           megakernel=self.megakernel,
                           metrics=self.metrics)
+
+    def shard_spec(self, n_shards: int = 0):
+        """The `distr.sharded.ShardSpec` this config describes; `n_shards`
+        (the actual rank count) overrides the config field. Per-shard
+        capacities left at 0 take `ShardSpec.create`'s balanced
+        defaults."""
+        from repro_torch.distr.sharded import ShardSpec
+        s = n_shards or self.n_shards
+        t = self.n_vertices * self.n_walks_per_vertex * self.length
+        spec = ShardSpec.create(s, self.n_vertices, t, self.edge_capacity,
+                                self.rewalk_capacity)
+        kw = {}
+        if self.shard_edge_capacity:
+            kw["edge_capacity"] = self.shard_edge_capacity
+        if self.shard_store_capacity:
+            kw["store_capacity"] = self.shard_store_capacity
+            kw["mav_capacity"] = self.shard_store_capacity
+        if self.handoff_slab:
+            kw["slab"] = self.handoff_slab
+        return replace(spec, **kw) if kw else spec
 
     def select_backend(self, device=None) -> str:
         """Install this config's FINDNEXT, intersect and megakernel

@@ -9,9 +9,10 @@ EngineState; `state_to_numpy` is its inverse. `maintainer_config_from`,
 `params_from_numpy`/`params_to_numpy` and `maintainer_state_from_numpy`
 do the same for the downstream maintainer (the SGNS tables and its
 optimizer counters), `baseline_from_numpy`/`baseline_to_numpy` for the II
-and Tree baselines (`core/baselines.py`), and `wharf_config_from` for a
-reference `WharfStreamConfig`. No JAX is imported: the caller turns its
-arrays into numpy first.
+and Tree baselines (`core/baselines.py`), `wharf_config_from` for a
+reference `WharfStreamConfig`, and `shard_states_from_numpy`/
+`shard_states_to_numpy` for the sharded engine's states (`distr/`). No
+JAX is imported: the caller turns its arrays into numpy first.
 """
 from __future__ import annotations
 
@@ -199,3 +200,28 @@ def wharf_config_from(cfg):
         kw[k] = BACKEND_NAMES[kw[k]]
     kw["megakernel"] = MEGAKERNEL_NAMES[kw["megakernel"]]
     return WharfStreamConfig(**kw)
+
+
+# the fields of a sharded engine state that are per shard; the rest of
+# SCALARS (the sizes) are one value for all shards
+SHARD_SCALARS = ("n_pending", "epoch", "overflow")
+
+
+def shard_states_from_numpy(d: dict, device=None) -> list:
+    """The reference's [S, ...]-stacked sharded `EngineState` as the dict
+    of `state_from_numpy` with a leading shard axis on every FIELDS entry
+    and on SHARD_SCALARS -> the S shard states of `distr.sharded`, shard
+    k at index k."""
+    def shard(k):
+        return {x: v[k] if x in FIELDS or x in SHARD_SCALARS else v
+                for x, v in d.items()}
+    return [state_from_numpy(shard(k), device)
+            for k in range(len(d["graph.codes"]))]
+
+
+def shard_states_to_numpy(states: list) -> dict:
+    """The inverse of `shard_states_from_numpy`."""
+    dicts = [state_to_numpy(s) for s in states]
+    out = {k: np.stack([x[k] for x in dicts]) for k in (*FIELDS, *SHARD_SCALARS)}
+    out.update({k: dicts[0][k] for k in SCALARS if k not in SHARD_SCALARS})
+    return out

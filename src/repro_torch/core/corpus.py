@@ -47,6 +47,36 @@ def walk_start_vertex(w, n_w: int):
     return w // n_w
 
 
+def compact_lanes_by_shard(dest, n_shards: int, slab: int):
+    """Bucket rewalk lanes by destination shard into fixed-size slabs.
+
+    dest: int [capacity] destination shard of each lane; `n_shards` marks
+    an inactive lane. Returns (send_lane int64 [n_shards, slab], overflow
+    bool []): row d lists the lanes routed to shard d in ascending lane
+    order, padded with the sentinel `capacity`; `overflow` flags a
+    destination given more than `slab` lanes (the lanes past `slab` are
+    dropped: a sticky correctness flag, as the MAV gather's). A stable
+    sort by destination, so the op count does not depend on `n_shards`."""
+    capacity = dest.shape[0]
+    dev = dest.device
+    dest = dest.to(torch.int64)
+    order = torch.argsort(dest, stable=True)
+    sdest = dest[order]
+    start = torch.searchsorted(
+        sdest, torch.arange(n_shards + 1, dtype=torch.int64, device=dev),
+        side="left")
+    overflow = ((start[1:] - start[:-1]) > slab).any()
+    rank = (torch.arange(capacity, device=dev)
+            - start[sdest.clamp(0, n_shards)])
+    ok = (sdest < n_shards) & (rank < slab)
+    # slot n_shards * slab is the scratch row of the dropped lanes
+    slot = torch.where(ok, sdest * slab + rank, n_shards * slab)
+    send_lane = torch.full((n_shards * slab + 1,), capacity,
+                           dtype=torch.int64, device=dev)
+    send_lane[slot] = order
+    return send_lane[:-1].reshape(n_shards, slab), overflow
+
+
 def generate_walk_matrix(key, graph: StreamingGraph, cfg: WalkConfig):
     """Dense int64 [n_walks, l] walk matrix sampled from scratch."""
     check_config(cfg)

@@ -86,11 +86,13 @@ class WalkStore:
             owner, torch.arange(n_vertices + 1, dtype=torch.int32, device=dev),
             side="left").to(torch.int32)
         _, v_next = ops.szudzik_unpair(code)
-        seg = owner.to(torch.int64)
-        vmin = torch.full((n_vertices,), M32, dtype=torch.int64, device=dev)
+        # a shard's pad rows (owner n_vertices) land in a dropped last row
+        seg = owner.to(torch.int64).clamp(max=n_vertices)
+        vmin = torch.full((n_vertices + 1,), M32, dtype=torch.int64, device=dev)
         vmin.scatter_reduce_(0, seg, v_next, "amin")
-        vmax = torch.zeros((n_vertices,), dtype=torch.int64, device=dev)
+        vmax = torch.zeros((n_vertices + 1,), dtype=torch.int64, device=dev)
         vmax.scatter_reduce_(0, seg, v_next, "amax")
+        vmin, vmax = vmin[:n_vertices], vmax[:n_vertices]
         del v_next, seg
         chunks = packed_store.pad_chunk_codes(code)
         if prev is not None and prev.code.shape == code.shape:

@@ -150,6 +150,24 @@ def _node2vec_factorized_step(key, graph, v, prev, p, q, n_trials: int,
                               n_trials)
 
 
+def sample_next_sharded(key, graph, v, model: WalkModel):
+    """SAMPLENEXT over the FULL lane vector against a vertex-range-local
+    graph: the per-shard half of the sharded rewalk (distr/sharded.py).
+
+    A lane's draw of `deepwalk_step` depends only on (key, lane index),
+    not on the other lanes' degrees, so every shard calls this with the
+    same key and the same [capacity] lanes as the single-device rewalk;
+    the lanes whose current vertex the shard owns come out as the
+    single-device draw, the others are masked by the caller. Folding the
+    shard into the key would change the stream. Order 2 needs N(prev),
+    which another shard may own: it raises, as in the reference."""
+    if model.order != 1:
+        raise NotImplementedError(
+            "sharded SAMPLENEXT is order-1 (DeepWalk) only: order-2 biases "
+            "need N(prev), which may be owned by another shard")
+    return deepwalk_step(key, graph, v)
+
+
 def sample_next(key, graph, v, prev, model: WalkModel):
     """SAMPLENEXT (paper Alg. 2 line 8), vectorized over walkers."""
     if model.order == 1:

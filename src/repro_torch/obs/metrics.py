@@ -21,9 +21,9 @@ dmax), `handoff_*` (the sharded engine's, 0 on one device),
 `overflow_first_epoch` (the first epoch each overflow source tripped,
 `NEVER` if none) and the nested `staleness` counters.
 
-`record_sharded_step` belongs to the sharded engine (distr/), which is not
-ported yet; `combine_shards` reduces an [S, ...]-stacked pytree as the
-reference does.
+`record_sharded_step` folds a step of the sharded engine (distr/) into one
+shard's counters; `combine_shards` reduces an [S, ...]-stacked tree of the
+shards' counters as the reference does.
 """
 from __future__ import annotations
 
@@ -160,6 +160,36 @@ def record_engine_step(m: StreamMetrics, state, aux, block_row: int,
         staleness=st)
     return record_overflow(m, OVF_MAV, state.overflow & ~overflow_before,
                            state.epoch)
+
+
+def record_sharded_step(m: StreamMetrics, state, obs: dict, forced_merge: bool,
+                        merge_tripped, eager: bool) -> StreamMetrics:
+    """Fold one step of the sharded engine into this shard's counters.
+
+    `obs` is the step's observation dict from the sharded update: the
+    replicated p_min histogram, this shard's handoff volumes and its
+    per-source overflow flags (graph, MAV gather, handoff slab);
+    `merge_tripped` is the store merge's. Walk lag is recorded (slot_epoch
+    is replicated); the divergence auditor is not (a sharded replay would
+    need a cross-shard traversal), so its counters stay 0."""
+    m = m.replace(
+        staleness=record_lag(m.staleness, state),
+        n_steps=m.n_steps + 1,
+        affected_total=m.affected_total + state.last_affected,
+        affected_max=torch.maximum(m.affected_max, state.last_affected),
+        pmin_hist=m.pmin_hist + obs["pmin_hist"],
+        pending_hwm=torch.clamp(m.pending_hwm, min=state.n_pending),
+        merges_forced=m.merges_forced + int(forced_merge),
+        merges_eager=m.merges_eager + int(eager),
+        handoff_sent=m.handoff_sent + obs["handoff_sent"],
+        handoff_cross=m.handoff_cross + obs["handoff_cross"],
+        handoff_max_load=torch.maximum(m.handoff_max_load,
+                                       obs["handoff_max_load"]))
+    epoch = state.epoch
+    m = record_overflow(m, OVF_GRAPH, obs["graph_overflow"], epoch)
+    m = record_overflow(m, OVF_STORE, merge_tripped, epoch)
+    m = record_overflow(m, OVF_MAV, obs["mav_overflow"], epoch)
+    return record_overflow(m, OVF_SLAB, obs["handoff_overflow"], epoch)
 
 
 def combine_shards(stacked: StreamMetrics) -> StreamMetrics:

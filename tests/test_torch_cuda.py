@@ -2,8 +2,9 @@
 card (bit for bit; kernel 7, the f32 SGNS step, within stated
 tolerances); and the engine on the card against the engine on the CPU,
 order 1 and order 2 (both samplers, unfused and fused), the
-downstream maintainer, the stream generators and the II and tree
-baselines.
+downstream maintainer, the stream generators, the II and tree
+baselines, and the sharded engine (4 gloo ranks on the card = the same
+ranks on the CPU = the single-host card engine; 1 rank on NCCL).
 
 Run on a machine with an NVIDIA sm_90a card:  pytest -m cuda tests/test_torch_*.py
 Without a card every test here skips (decided inside the fixture). This
@@ -804,3 +805,22 @@ def test_default_findnext_backend_guards(dev):
         assert packed_store.get_default_backend() == "cuda"
     finally:
         packed_store._default_backend = saved
+
+
+def test_compact_lanes_by_shard_card_equals_cpu(dev):
+    from repro_torch.core.corpus import compact_lanes_by_shard
+    dest = torch.from_numpy(np.random.default_rng(5).integers(0, 9, 100_000))
+    for slab in (20_000, 5_000):       # roomy, and overflowing
+        send, ovf = compact_lanes_by_shard(dest.to(dev), 8, slab)
+        want, want_ovf = compact_lanes_by_shard(dest, 8, slab)
+        assert torch.equal(send.cpu(), want) and bool(ovf) == bool(want_ovf)
+
+
+def test_sharded_engine_on_the_card(dev, tmp_path):
+    """chip_smoke's phase 7a: 4 gloo ranks on the card at 2^12 vertices,
+    both merge policies and once with metrics; unsharded = the single-host
+    card engine, each shard = the same ranks' CPU shard, metrics ON = OFF,
+    counters card = CPU; one rank on NCCL = the single-host engine."""
+    import chip_smoke
+    checks = chip_smoke.phase_sharded_small(dev, str(tmp_path))
+    assert checks and all(checks.values()), checks

@@ -66,14 +66,21 @@ def test_every_module_imports_without_a_card():
                                     "repro_torch.data.streams",
                                     "repro_torch.core.baselines",
                                     "repro_torch.configs",
-                                    "repro_torch.configs.wharf_stream"])
+                                    "repro_torch.configs.wharf_stream",
+                                    "repro_torch.distr.sharded",
+                                    "repro_torch.distr.engine",
+                                    "repro_torch.distr.ranks"])
 def test_each_module_imports_first_in_a_fresh_process(module):
     """The core and the kernel wrappers import each other; any one of them
-    imported first must still work."""
+    imported first must still work, and pull in neither JAX nor the JAX
+    package."""
     import subprocess
     import sys
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    r = subprocess.run([sys.executable, "-c", f"import {module}"],
+    code = (f"import sys, {module}\n"
+            "bad = {'jax', 'jaxlib', 'repro'} & set(sys.modules)\n"
+            "assert not bad, bad")
+    r = subprocess.run([sys.executable, "-c", code],
                        capture_output=True, text=True, env=env, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
 

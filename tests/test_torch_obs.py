@@ -8,8 +8,8 @@ The reference's contract that metrics OFF lowers to byte-identical HLO
 (tests/test_obs.py::test_metrics_off_hlo_identity and
 ::test_metrics_scope_in_compiled_executables) is restated for the port:
 with metrics OFF `run_stream` calls exactly the kernel wrappers, in
-order, that the plain step loop calls. The sharded metrics test waits for
-the port of distr/."""
+order, that the plain step loop calls. The sharded metrics test is in
+tests/test_torch_distr_serve_obs.py."""
 import collections
 import functools
 import json

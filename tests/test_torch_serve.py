@@ -6,7 +6,7 @@ are held bit for bit (walks_of as per-row walk-id sets, as the reference
 holds it), PPR rows to the reference's rtol 1e-6, embedding neighbor
 scores to rtol 1e-6 (the reference's f32 dot sums in its own order).
 
-The 8-shard pinned-serving test waits for the port of distr/."""
+The 8-shard pinned-serving test is in tests/test_torch_distr_serve_obs.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np
