@@ -98,6 +98,31 @@ every phase passed):
      barriers (max over ranks), the all_reduce's and all_to_alls' ms, the
      handoff volume and cross-shard share, each rank's peak memory and
      the card's, and each kernel's launches on this path
+  8. the launcher (launch/train.py) through TrainLoop. 8a: its downstream
+     and stream trainers at the wharf-stream smoke config, 6 steps and a
+     checkpoint every 3, on the card and on the CPU with the same keys
+     (engines bit for bit, affected walks, pairs and opt exact, tables
+     rtol 2e-4 / atol 1e-5, loss rtol 1e-5), and a crash after step 2
+     resumed by a fresh trainer (= the uninterrupted run; on the CPU bit
+     for bit in every leaf). 8b: `--mode downstream` at full width on a
+     cut copy of wharf-stream registered here (2^18 vertices, the
+     launcher's R-MAT graph of 4 * 10,000 edges, rewalk_capacity 2^20,
+     d 128, 2^16 pairs a step, a checkpoint every 4 steps, 2 kept): 6
+     steps with the counts set to 0 just
+     before and read just after (kernels 1, 2, 4, 7 launched, 5 and 6
+     not), then 3 steps and a fresh trainer that resumes from the
+     committed checkpoint for 3 more (engine bit for bit, opt and every
+     step's affected walks and pairs exact, tables within tolerance; no
+     affected count at the capacity, no MAV overflow); the step ms, the
+     checkpoint's bytes, each save's host copy and write, the restore,
+     the peak memory; `--mode stream` for 3 steps. 8c: the paper's
+     downstream-quality check (§7.6) at cora_like's own sizes (2,708
+     vertices, 5,429 edges, 7 classes) on the card, and its engine and
+     full retrain on the CPU: walk matrices card = CPU, incremental
+     accuracy within 0.10 of a full retrain's on the card, fewer pairs
+     than one full retrain; then the whole check at the test's own sizes
+     on the card and the CPU (walks and counts equal, the maintainer's
+     tables within tolerance).
 Phase 2 also runs a small maintainer on the card against the CPU and
 against a plain engine, and the order-1 stream with `WalkConfig(metrics=
 True)` on the card: its state equals the plain run's, its counters equal
@@ -106,6 +131,7 @@ it prints the exported summary. Each phase prints one JSON line.
 """
 import contextlib
 import dataclasses
+import inspect
 import json
 import os
 import shutil
@@ -123,10 +149,13 @@ sys.path.insert(0, os.path.join(_ROOT, "src"))
 
 from repro_torch import random as jr  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs.base import ArchSpec, register  # noqa: E402
+from repro_torch.configs.wharf_stream import WHARF_SHAPES, WharfStreamConfig  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.convert import baseline_to_numpy, state_to_numpy  # noqa: E402
 from repro_torch.core.baselines import IIEngine, TreeEngine  # noqa: E402
-from repro_torch.data.streams import edge_batch_stream, er_edges, mixed_edge_stream  # noqa: E402
+from repro_torch.data.streams import (cora_like, edge_batch_stream, er_edges,  # noqa: E402
+                                      mixed_edge_stream)
 from repro_torch.core import StreamingGraph, WalkConfig, generate_corpus  # noqa: E402
 from repro_torch.core import pairing  # noqa: E402
 from repro_torch.core.corpus import walk_start_vertex  # noqa: E402
@@ -143,10 +172,15 @@ from repro_torch.distr.sharded import (consolidate, local_shard_state,  # noqa: 
 from repro_torch.downstream import EmbeddingMaintainer, MaintainerConfig  # noqa: E402
 from repro_torch.kernels import _build, delta, intersect, megakernel, ops  # noqa: E402
 from repro_torch.kernels import range_search, sgns, szudzik  # noqa: E402
+from repro_torch.launch import train as launch  # noqa: E402
+from repro_torch.models.embeddings import (SGNSConfig, logistic_eval, sgns_init,  # noqa: E402
+                                          train_epoch, window_pairs)
 from repro_torch.core import update  # noqa: E402
 from repro_torch.obs import export, slo  # noqa: E402
-from repro_torch.obs.metrics import tree_map  # noqa: E402
 from repro_torch.serve import WalkQueryService, batched  # noqa: E402
+from repro_torch import tree as ttree  # noqa: E402
+from repro_torch.train.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.train.runtime import TrainLoop  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12      # H100 float32 outside the tensor cores
@@ -229,6 +263,35 @@ SHARDED_REDUCED = dict(
     max_pending="8 -> 2 (device memory)",
     rewalk_capacity="2^20 -> n_walks, as phase 3; the slab follows it (the "
                     "config's default, the whole lane capacity)")
+
+# phase 8: the launcher (src/repro/launch/train.py:62-187) through its
+# TrainLoop. 8a at the wharf-stream smoke config; 8b `--mode downstream` on
+# a cut copy of wharf-stream registered here only, with the launcher's own
+# graph (R-MAT, 4 * batch_edges edges, :108) and its 2^16-pair budget, SGNS
+# at DeepWalk's d = 128 (phase 3b's), a checkpoint every 4 steps (at 3 the
+# loop would save step 2 twice, async and then the final blocking save,
+# ~13 GB each); 8c is
+# tests/test_downstream.py::test_incremental_matches_full_retrain at
+# cora_like's own defaults (src/repro/data/streams.py)
+TRAINER = dict(arch="wharf-stream-h100", log2_n=18, edge_capacity=1 << 25, max_pending=4,
+               rewalk_capacity=1 << 20, batch_edges=10_000, dim=128, max_pairs=1 << 16,
+               steps=6, crash_after=3, ckpt_every=4, keep=2, stream_steps=3,
+               small=dict(batch_edges=32, dim=16, steps=6, crash_after=3, ckpt_every=3))
+TRAINER_REDUCED = dict(
+    n_vertices=REDUCED["n_vertices"], edge_capacity=REDUCED["edge_capacity"],
+    max_pending=REDUCED["max_pending"],
+    steps="6 uninterrupted steps, 3 + 3 resumed, 3 of --mode stream (the run's time limit)")
+QUALITY = dict(n_vertices=2708, n_edges=5429, n_classes=7, n_walks_per_vertex=6,
+               length=10, dim=32, window=3, n_negative=4, lr=0.002, snapshots=2,
+               n_batches=3, batch_edges=12, epochs=4, batch=2048, gap=0.10,
+               edge_capacity=1 << 14)   # the test's 8,192 holds fewer than the 2 x 5,357 edges
+# the reference test's own sizes, where the CPU maintainer takes seconds:
+# 8c holds the card's maintainer against it there
+QUALITY_SMALL = dict(QUALITY, n_vertices=128, n_edges=512, n_classes=5,
+                     edge_capacity=8192)
+# the maintainer's tables, card against CPU or resumed against
+# uninterrupted: the reference's tolerance for a scatter-added SGNS step
+TABLE_TOL = dict(rtol=2e-4, atol=1e-5)
 
 KERNEL_META = {
     "szudzik_pair": ("src/repro_torch/kernels/csrc/szudzik.cu",
@@ -647,7 +710,6 @@ def phase_maintainer(dev, host_state):
     for k, v in state_tensors(view, pending=False).items():
         if not torch.equal(v.cpu(), host_state[k]):
             raise AssertionError(f"maintainer engine != phase 3's engine in {k}")
-    mt.load_state(mt.state._replace(engine=view.state))
     del view
     tables_finite = all(bool(torch.isfinite(t).all()) for t in mt.params.values())
     assert tables_finite, "a table holds a non-finite value"
@@ -1986,7 +2048,7 @@ def rank_small(rank, p):
             out[d.type, name] = dict(
                 state=state_to_numpy(res[0]), affected=res[1].cpu().numpy(),
                 calls=dict(collectives.calls), launches=dict(ops.launches),
-                metrics=tree_map(lambda t: t.cpu().numpy(), res[2]) if metrics else None)
+                metrics=ttree.tree_map(lambda t: t.cpu().numpy(), res[2]) if metrics else None)
     return out
 
 
@@ -2057,7 +2119,7 @@ def phase_sharded_small(dev, workdir):
     summ = {}
     for d in (dev.type, "cpu"):
         ms = [res[d, "metrics"]["metrics"] for res in results]
-        summ[d] = export.summary(tree_map(
+        summ[d] = export.summary(ttree.tree_map(
             lambda *ls: torch.stack([torch.from_numpy(np.asarray(x)) for x in ls]), *ms))
     assert summ[dev.type] == summ["cpu"], "7a: combined counters card != cpu"
     checks.update(metrics_on_equals_off=True, counters_card_equal_cpu=True)
@@ -2274,6 +2336,362 @@ def phase_sharded_full(dev, workdir):
     log("sharded", **res)
     return res
 
+
+# ---------------------------------------------------------------- phase 8
+
+
+def register_trainer_config() -> str:
+    """Register TRAINER's cut copy of wharf-stream for this process only
+    (the package's `wharf-stream` stays as it is) -> its name."""
+    t = TRAINER
+    register(ArchSpec(
+        name=t["arch"], family="wharf", shapes=WHARF_SHAPES,
+        make_config=lambda smoke=False: WharfStreamConfig(
+            name=t["arch"], n_vertices=1 << t["log2_n"],
+            edge_capacity=t["edge_capacity"], max_pending=t["max_pending"],
+            batch_edges=t["batch_edges"], rewalk_capacity=t["rewalk_capacity"]),
+        notes="wharf-stream cut in scale to one H100 (chip_smoke.py phase 8b)"))
+    return t["arch"]
+
+
+def build_trainer(mode: str, arch: str, smoke: bool, dev, ckpt_dir: str,
+                  ckpt_every: int, keep: int, batch_edges: int, dim: int = 64,
+                  max_pairs: int = 1 << 16) -> dict:
+    """The launcher's trainer for `mode` ("downstream" or "stream") on
+    `dev` and its TrainLoop, as a (re)started process builds them."""
+    on_restore = None
+    if mode == "downstream":
+        state, step_fn, batch_fn, on_restore = launch.downstream_trainer(
+            arch, smoke, batch_edges, dim, max_pairs, device=dev)
+    else:
+        state, step_fn, batch_fn = launch.wharf_trainer(arch, smoke, batch_edges,
+                                                        device=dev)
+    loop = TrainLoop(step_fn=step_fn, batch_fn=batch_fn,
+                     ckpt=CheckpointManager(ckpt_dir, keep=keep),
+                     ckpt_every=ckpt_every, on_restore=on_restore, device=dev)
+    # the walk engine of the step closure (the stream mode's carry holds
+    # only the store's codes)
+    held = inspect.getclosurevars(step_fn).nonlocals
+    engine = ((lambda: held["mt"].state.engine) if mode == "downstream"
+              else (lambda: held["engine"].state))
+    return dict(loop=loop, state=state, engine=engine)
+
+
+def run_trainer(tr: dict, steps: int, resume: bool = False) -> dict:
+    """`steps` TrainLoop steps of a built trainer, after `loop.resume` when
+    asked -> the final carry, per-step metrics and synced ms, the first
+    step, the restore's seconds."""
+    loop, state = tr["loop"], tr.pop("state")
+    start, restore_s = 0, None
+    if resume:
+        (state, start), restore_s = sync_time(lambda: loop.resume(state))
+    metrics, ms = {}, {}
+
+    def on_metrics(step, dt, m):
+        metrics[step] = m
+        ms[step] = dt * 1e3
+
+    state = loop.run(state, start, steps, on_metrics)
+    return dict(state=state, metrics=metrics, ms=ms, start=start, restore_s=restore_s,
+                engine=tr["engine"](), saves=loop.ckpt.saves,
+                stragglers=loop.straggler.events)
+
+
+def metrics_match(got: dict, want: dict, what: str) -> None:
+    """Per-step metrics equal, the f32 loss within SGNS_LOSS_RTOL (the
+    loop's straggler flag is a matter of timing, not compared)."""
+    assert sorted(got) == sorted(want), (what, sorted(got), sorted(want))
+    for step, m in want.items():
+        g = {k: v for k, v in got[step].items() if k != "straggler"}
+        m = {k: v for k, v in m.items() if k != "straggler"}
+        assert set(g) == set(m), (what, step)
+        for k, v in m.items():
+            if k == "loss":
+                assert abs(g[k] - v) <= SGNS_LOSS_RTOL * abs(v), (what, step, k)
+            else:
+                assert g[k] == v, (what, step, k, g[k], v)
+
+
+def engines_equal(a, b, what: str) -> None:
+    sa, sb = state_to_numpy(a), state_to_numpy(b)
+    for k in sb:
+        if not np.array_equal(np.asarray(sa[k]), np.asarray(sb[k])):
+            raise AssertionError(f"{what}: engines differ in {k}")
+
+
+def tables_close(a: dict, b: dict, what: str) -> None:
+    for k in ("in", "out"):
+        torch.testing.assert_close(a[k].cpu(), b[k].cpu(), **TABLE_TOL,
+                                   msg=lambda m: f"{what}, table {k}: {m}")
+
+
+def carries_equal(a, b, what: str) -> None:
+    """Every leaf of two carries (tensors and host ints) bit for bit."""
+    want = ttree.leaf_paths(b)
+    for k, v in ttree.leaf_paths(a).items():
+        w = want[k]
+        same = (torch.equal(v, w.to(v.device)) if isinstance(v, torch.Tensor)
+                else v == w and type(v) is type(w))
+        if not same:
+            raise AssertionError(f"{what}: leaf {k} differs")
+
+
+def phase_trainer_small(dev, workdir):
+    """Phase 8a: the launcher's two wharf modes at the `wharf-stream` smoke
+    config through TrainLoop (6 steps, a checkpoint every 3) on the card
+    and on the CPU with the same keys, and a crash after step 2 followed
+    by a fresh downstream trainer that resumes."""
+    t = TRAINER["small"]
+    kw = dict(ckpt_every=t["ckpt_every"], keep=3, batch_edges=t["batch_edges"],
+              dim=t["dim"])
+    runs = {}
+    for d in (torch.device("cpu"), dev):
+        for mode in ("downstream", "stream"):
+            tr = build_trainer(mode, "wharf-stream", True, d,
+                               tempfile.mkdtemp(prefix=f"{mode}_", dir=workdir), **kw)
+            runs[d.type, mode] = run_trainer(tr, t["steps"])
+        ck = tempfile.mkdtemp(prefix="resume_", dir=workdir)
+        first = run_trainer(build_trainer("downstream", "wharf-stream", True, d, ck, **kw),
+                            t["crash_after"])
+        runs[d.type, "resumed"] = run_trainer(
+            build_trainer("downstream", "wharf-stream", True, d, ck, **kw),
+            t["steps"] - t["crash_after"], resume=True)
+        runs[d.type, "first"] = first
+    for mode in ("downstream", "stream"):
+        cpu, card = runs["cpu", mode], runs[dev.type, mode]
+        metrics_match(card["metrics"], cpu["metrics"], f"8a {mode}: card vs cpu")
+        engines_equal(card["engine"], cpu["engine"], f"8a {mode}: card vs cpu")
+    cpu, card = runs["cpu", "downstream"], runs[dev.type, "downstream"]
+    tables_close(card["state"].params, cpu["state"].params, "8a: card vs cpu")
+    for k in ("step", "pairs"):
+        assert int(card["state"].opt[k]) == int(cpu["state"].opt[k]), k
+    for d in ("cpu", dev.type):
+        full, res = runs[d, "downstream"], runs[d, "resumed"]
+        assert res["start"] == t["crash_after"], res["start"]
+        metrics_match({**runs[d, "first"]["metrics"], **res["metrics"]}, full["metrics"],
+                      f"8a resumed ({d})")
+        if d == "cpu":
+            carries_equal(res["state"], full["state"], "8a: resumed vs uninterrupted (cpu)")
+        else:
+            engines_equal(res["state"].engine, full["state"].engine,
+                          "8a: resumed vs uninterrupted (card)")
+            carries_equal(res["state"].opt, full["state"].opt, "8a: opt (card)")
+            tables_close(res["state"].params, full["state"].params,
+                         "8a: resumed vs uninterrupted (card)")
+    log("trainer_small", ok=True, steps=t["steps"], crash_after=t["crash_after"],
+        affected=[m["affected_walks"] for m in card["metrics"].values()],
+        pairs=[m["pairs"] for m in card["metrics"].values()],
+        stream_affected=[m["affected_walks"]
+                         for m in runs[dev.type, "stream"]["metrics"].values()],
+        ms_card=list(card["ms"].values()), ms_cpu=list(cpu["ms"].values()))
+
+
+def nbytes_of(tree) -> int:
+    """Bytes of a carry's leaves as a checkpoint stores them (an int as 8)."""
+    return sum(v.numel() * v.element_size() if isinstance(v, torch.Tensor) else 8
+               for v in ttree.tree_leaves(tree))
+
+
+def phase_trainer(dev, workdir):
+    """Phase 8b: the launcher's `--mode downstream` at full width (TRAINER:
+    wharf-stream cut to 2^18 vertices, registered here), 6 uninterrupted
+    steps with the counts set to 0 just before and read just after (an
+    async save after step 3 runs beside steps 4-5); then a loop of 3 steps
+    and a fresh trainer that resumes from its committed checkpoint and
+    runs 3 more, every leaf of its engine and opt equal to the kept
+    uninterrupted state's; then `--mode stream` for 3 steps."""
+    t = TRAINER
+    arch = register_trainer_config()
+    kw = dict(ckpt_every=t["ckpt_every"], keep=t["keep"], batch_edges=t["batch_edges"],
+              dim=t["dim"], max_pairs=t["max_pairs"])
+    cap = t["rewalk_capacity"]
+    torch.cuda.reset_peak_memory_stats()
+    d_full = tempfile.mkdtemp(prefix="ckpt_full_", dir=workdir)
+    tr, build_s = sync_time(lambda: build_trainer("downstream", arch, False, dev, d_full, **kw))
+    ckpt_bytes = nbytes_of(tr["state"])
+    free = shutil.disk_usage(workdir).free
+    log("trainer_disk", workdir_free_bytes=free, checkpoint_bytes=ckpt_bytes,
+        keep=t["keep"])
+    need = (t["keep"] + 1) * ckpt_bytes
+    if free < need:
+        raise RuntimeError(f"phase 8b: {free / 1e9:.1f} GB free under {workdir}, "
+                           f"the checkpoints need {need / 1e9:.1f} GB")
+    ops.reset_launches()    # ---- the trainer's steps, counted from here
+    full = run_trainer(tr, t["steps"])
+    launches = dict(ops.launches)   # ---- read just after them
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del tr
+    steps_m = full["metrics"]
+    affected = [m["affected_walks"] for m in steps_m.values()]
+    assert max(affected) < cap, f"an affected count reached rewalk_capacity {cap}"
+    assert not bool(full["state"].engine.overflow), "MAV gather overflow"
+    for k in ("szudzik_pair", "szudzik_unpair", "find_next_packed", "sgns_step"):
+        assert launches[k] > 0, f"kernel {k} was not launched on the trainer path"
+    for k in ("intersect_next", "intersect_csr", "fused_rewalk_step"):
+        assert launches[k] == 0, f"kernel {k} was launched on the trainer path"
+    kept = full.pop("state")     # on the card (13 GB) for the comparison below
+    full.pop("engine")
+    shutil.rmtree(d_full, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # the pair saves only where each leg ends: the first leg's closing save
+    # is the checkpoint the fresh trainer resumes from
+    kw_pair = dict(kw, ckpt_every=t["steps"] + 1)
+    d_pair = tempfile.mkdtemp(prefix="ckpt_pair_", dir=workdir)
+    first = run_trainer(build_trainer("downstream", arch, False, dev, d_pair, **kw_pair),
+                        t["crash_after"])
+    first.pop("state"), first.pop("engine")
+    torch.cuda.empty_cache()
+    res = run_trainer(build_trainer("downstream", arch, False, dev, d_pair, **kw_pair),
+                      t["steps"] - t["crash_after"], resume=True)
+    assert res["start"] == t["crash_after"], res["start"]
+    metrics_match({**first["metrics"], **res["metrics"]}, full["metrics"],
+                  "8b: resumed vs uninterrupted")
+    st = res.pop("state")
+    res.pop("engine")
+    carries_equal(st.engine, kept.engine, "8b: resumed vs uninterrupted engine")
+    carries_equal(st.opt, kept.opt, "8b: opt")
+    tables_close(st.params, kept.params, "8b: resumed vs uninterrupted")
+    finite = all(bool(torch.isfinite(v).all()) for v in st.params.values())
+    assert finite, "a table holds a non-finite value"
+    del st, kept
+    shutil.rmtree(d_pair, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    d_stream = tempfile.mkdtemp(prefix="ckpt_stream_", dir=workdir)
+    stream = run_trainer(build_trainer("stream", arch, False, dev, d_stream, **kw),
+                         t["stream_steps"])
+    stream.pop("state"), stream.pop("engine")
+    shutil.rmtree(d_stream, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out = dict(
+        config=dataclasses.asdict(get_arch(arch).make_config()), dim=t["dim"],
+        max_pairs=t["max_pairs"], build_s=build_s, checkpoint_bytes=ckpt_bytes,
+        step_ms=list(full["ms"].values()), stragglers=full["stragglers"],
+        affected_walks=affected, pairs=[m["pairs"] for m in steps_m.values()],
+        loss_per_pair=[m["loss"] / max(m["pairs"], 1) for m in steps_m.values()],
+        saves=full["saves"], peak_mem_gb=peak,
+        resumed=dict(first_ms=list(first["ms"].values()), ms=list(res["ms"].values()),
+                     restore_s=res["restore_s"], saves=first["saves"] + res["saves"],
+                     stragglers=first["stragglers"] + res["stragglers"]),
+        stream=dict(ms=list(stream["ms"].values()), saves=stream["saves"],
+                    affected_walks=[m["affected_walks"] for m in stream["metrics"].values()]),
+        launches=launches,
+        checks=dict(resumed_engine_equals_uninterrupted=True, opt_exact=True,
+                    tables_within_tolerance=True, affected_below_capacity=True,
+                    no_overflow=True))
+    log("reduced_trainer", **TRAINER_REDUCED)
+    log("trainer", **out)
+    return out
+
+
+def quality_run(d, q: dict, maintain: bool = True) -> dict:
+    """tests/test_downstream.py::test_incremental_matches_full_retrain at
+    the sizes `q` on device `d`: the warm retrain, the maintainer's
+    incremental stream and the probe of its table, then the full retrain
+    of the final corpus and its probe. With `maintain=False` (the CPU
+    half at cora_like's size) a plain engine takes the maintainer's
+    place, on the same update keys (the maintainer's engine equals it bit
+    for bit, phase 2), and only the full retrain and its probe run: the
+    plain versions' SGNS pairs of the stream (780k a batch) take ~2 min on
+    the CPU."""
+    n, n_w = q["n_vertices"], q["n_walks_per_vertex"]
+    key = jr.PRNGKey(0, d)
+    (src, dst), labels, _ = cora_like(key, n_vertices=n, n_edges=q["n_edges"],
+                                      n_classes=q["n_classes"])
+    n_stream = q["snapshots"] * q["n_batches"] * q["batch_edges"]
+    n0 = src.shape[0] - n_stream
+    wcfg = WalkConfig(n_walks_per_vertex=n_w, length=q["length"])
+    scfg = SGNSConfig(n_vertices=n, dim=q["dim"], window=q["window"],
+                      n_negative=q["n_negative"])
+
+    def retrain(walks, seed):
+        p = sgns_init(jr.PRNGKey(seed, d), scfg)
+        k = jr.PRNGKey(seed, d)
+        for _ in range(q["epochs"]):
+            k, kk = jr.split(k)
+            p, _ = train_epoch(kk, p, walks, scfg, batch=q["batch"])
+        return p
+
+    g = StreamingGraph.from_edges(src[:n0], dst[:n0], n, q["edge_capacity"], device=d)
+    store = generate_corpus(jr.PRNGKey(1, d), g, wcfg)
+    out = {}
+    if maintain:
+        mcfg = MaintainerConfig(walk=wcfg, n_vertices=n, dim=q["dim"], window=q["window"],
+                                n_negative=q["n_negative"], rewalk_capacity=n * n_w,
+                                lr=q["lr"])
+        mt = EmbeddingMaintainer(graph=g, store=store, cfg=mcfg, key=jr.PRNGKey(2, d))
+        w0 = mt.engine_view().walk_matrix()
+        warm, out["warm_retrain_s"] = sync_time(lambda: retrain(w0, 3))
+        mt.load_state(mt.state._replace(params=warm))
+        stream = mt.run_stream
+    else:
+        eng = WalkEngine(graph=g, store=store, cfg=wcfg, rewalk_capacity=n * n_w)
+        w0 = eng.walk_matrix()
+        stream = eng.run_stream
+    pairs_inc, t_inc, counts = 0, 0.0, []
+    for snap in range(q["snapshots"]):
+        lo = n0 + snap * q["n_batches"] * q["batch_edges"]
+        hi = lo + q["n_batches"] * q["batch_edges"]
+        m, dt = sync_time(lambda: stream(
+            jr.fold_in(key, 10 + snap), src[lo:hi].reshape(q["n_batches"], -1),
+            dst[lo:hi].reshape(q["n_batches"], -1)))
+        t_inc += dt
+        if maintain:
+            pairs_inc += int(m.n_pairs.sum())
+            counts.append((m.n_affected.tolist(), m.n_pairs.tolist()))
+    if maintain:
+        assert not mt.mav_overflowed, "MAV gather overflow"
+        out.update(acc_inc=logistic_eval(mt.embeddings, labels), pairs_inc=pairs_inc,
+                   incremental_s=t_inc, counts=counts,
+                   tables={k: v.cpu() for k, v in mt.params.items()})
+        w1 = mt.engine_view().walk_matrix()
+    else:
+        assert not eng.mav_overflowed, "MAV gather overflow"
+        out["engine_stream_s"] = t_inc
+        w1 = eng.walk_matrix()
+    full, out["full_retrain_s"] = sync_time(lambda: retrain(w1, 100))
+    out["acc_full"] = logistic_eval(full["in"], labels)
+    out["full_pairs"] = q["epochs"] * window_pairs(w1, q["window"])[0].shape[0]
+    out["walks"] = (w0.cpu(), w1.cpu())
+    return out
+
+
+def phase_quality(dev):
+    """Phase 8c: the paper's downstream-quality check (§7.6) at cora_like's
+    own sizes: on the card the whole check, on the CPU the engine and the
+    full retrain (`quality_run`'s `maintain=False`). The walk matrices
+    card = CPU, the incremental embeddings' accuracy within QUALITY["gap"]
+    of a full retrain's on the card, with fewer pairs trained than one
+    full retrain of the final corpus. Then the whole check at the
+    reference test's sizes on the card and on the CPU: walks, affected
+    and pair counts equal, the maintainer's tables within TABLE_TOL."""
+    cpu_dev = torch.device("cpu")
+    card = quality_run(dev, QUALITY)
+    cpu = quality_run(cpu_dev, QUALITY, maintain=False)
+    for a, b in zip(card.pop("walks"), cpu.pop("walks")):
+        assert torch.equal(a, b), "8c: card and CPU walk matrices differ"
+    q = QUALITY
+    assert card["acc_inc"] >= card["acc_full"] - q["gap"], (card["acc_inc"], card["acc_full"])
+    assert card["pairs_inc"] < card["full_pairs"], (card["pairs_inc"], card["full_pairs"])
+    small = {"card": quality_run(dev, QUALITY_SMALL),
+             "cpu": quality_run(cpu_dev, QUALITY_SMALL)}
+    for a, b in zip(small["card"].pop("walks"), small["cpu"].pop("walks")):
+        assert torch.equal(a, b), "8c small: card and CPU walk matrices differ"
+    assert small["card"]["counts"] == small["cpu"]["counts"], "8c small: counts differ"
+    tc, tp = small["card"].pop("tables"), small["cpu"].pop("tables")
+    for k in tc:
+        assert torch.allclose(tc[k], tp[k], **TABLE_TOL), f"8c small: the {k} tables differ"
+    small["tables_max_abs_err"] = {k: float((tc[k] - tp[k]).abs().max()) for k in tc}
+    small_card = small["card"]
+    assert small_card["acc_inc"] >= small_card["acc_full"] - q["gap"], small_card
+    card.pop("tables")
+    card.pop("counts")
+    log("quality", ok=True, sizes=q, card=card, cpu=cpu, small_sizes=QUALITY_SMALL,
+        small=small)
+    return card
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2309,19 +2727,28 @@ def main() -> int:
         sharded = phase_sharded_full(dev, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=_ROOT)
+    try:
+        phase_trainer_small(dev, workdir)
+        trainer = phase_trainer(dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    phase_quality(dev)
     next(r for r in kernels if r["name"] == "find_next_packed")["prefix_read"] = prefix_read
     # each kernel's launches on the main paths: order 1 (phase 3), the
     # maintainer (phase 3b), the serve path (phase 3c), and the order-2
     # corpus, unfused and fused batches (phase 4), and the paper's
-    # comparison (phase 6: Wharf, II, tree; II and tree at order 2), and
-    # the sharded engine's four ranks (phase 7b)
+    # comparison (phase 6: Wharf, II, tree; II and tree at order 2), the
+    # sharded engine's four ranks (phase 7b), and the launcher's
+    # downstream trainer (phase 8b)
     for r in kernels:
         by_path = {"order1": full["launches"][r["name"]],
                    "maintainer": maint["launches"][r["name"]],
                    "serve": serve["launches"][r["name"]],
                    **{p: n2v["launches"][p][r["name"]] for p in n2v["launches"]},
                    **{p: paper["launches"][p][r["name"]] for p in paper["launches"]},
-                   "sharded": sharded["launches"][r["name"]]}
+                   "sharded": sharded["launches"][r["name"]],
+                   "trainer": trainer["launches"][r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         if r["name"] in OFF_MAIN_PATH:

@@ -21,8 +21,11 @@ place where the reference donates the carry. With `cfg.walk.metrics` the
 engine half of `run_stream` updates `EmbeddingMaintainer.metrics` as the
 plain engine loop does (obs/metrics.py).
 
-Not ported yet: restoring a `MaintainerState` from a checkpoint waits for
-train/.
+A `MaintainerState` saves and restores whole through
+`train/checkpoint.py`, the engine's host counters (`n_pending`, `epoch`)
+included, and `load_state` installs a restored one: the maintainer then
+continues as the one that saved it (launch/train.py resumes the
+co-scheduled trainer so).
 """
 from __future__ import annotations
 
@@ -266,22 +269,18 @@ class EmbeddingMaintainer:
         return bool(self.state.engine.overflow)
 
     def engine_view(self) -> WalkEngine:
-        """A WalkEngine sharing this maintainer's engine state (its pending
-        tensors included). Steps through the view and further maintainer
-        steps must not interleave."""
-        c, st = self.cfg, self.state.engine
-        eng = WalkEngine(graph=st.graph, store=st.store, cfg=c.walk,
-                         merge_policy=c.merge_policy, merge_impl=c.merge_impl,
-                         rewalk_capacity=c.rewalk_capacity,
-                         max_pending=c.max_pending, mav_capacity=c.mav_capacity,
-                         pending=st.pending, n_pending=st.n_pending,
-                         epoch=st.epoch)
-        eng.state = st
-        return eng
+        """A WalkEngine over this maintainer's engine state. The view reads
+        and writes that state through: a merge or an update through it is
+        the maintainer's own, so it never resets pending blocks that the
+        maintainer still counts (the reference's functional merge leaves
+        the maintainer untouched; a merge changes no walk, so the walks,
+        pairs and tables that follow are the reference's)."""
+        return _EngineView(self)
 
     def load_state(self, state: MaintainerState) -> None:
-        """Install a MaintainerState (its engine carries the merge
-        schedule's host counters)."""
+        """Install a MaintainerState, a restored one too: its engine
+        carries the merge schedule's host counters, which the reference
+        re-derives from its device epoch."""
         self.state = state
 
     # ------------------------------------------------------------------ API
@@ -332,3 +331,28 @@ class EmbeddingMaintainer:
                 self.state, m = maintain_step(*step)
             out.append(m)
         return StepMetrics(*map(torch.stack, zip(*out)))
+
+
+class _EngineView(WalkEngine):
+    """`EmbeddingMaintainer.engine_view()`: `state` is the maintainer's
+    `state.engine`, read and assigned through."""
+
+    def __init__(self, owner: EmbeddingMaintainer):
+        c, st = owner.cfg, owner.state.engine
+        self._owner = None     # WalkEngine.__init__'s own state is dropped
+        super().__init__(graph=st.graph, store=st.store, cfg=c.walk,
+                         merge_policy=c.merge_policy, merge_impl=c.merge_impl,
+                         rewalk_capacity=c.rewalk_capacity,
+                         max_pending=c.max_pending, mav_capacity=c.mav_capacity,
+                         pending=st.pending, n_pending=st.n_pending,
+                         epoch=st.epoch)
+        self._owner = owner
+
+    @property
+    def state(self) -> EngineState:
+        return self._owner.state.engine
+
+    @state.setter
+    def state(self, st: EngineState) -> None:
+        if self._owner is not None:
+            self._owner.state = self._owner.state._replace(engine=st)

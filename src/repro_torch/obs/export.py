@@ -23,9 +23,10 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.obs.metrics import (NEVER, OVERFLOW_SOURCES, PMIN_BUCKETS,
-                               StreamMetrics, combine_shards, tree_map)
+                               StreamMetrics, combine_shards)
 from repro_torch.obs.staleness import (LAG_BUCKETS, LAG_THRESHOLDS, STALE_LAG,
                                  StalenessMetrics)
+from repro_torch.tree import tree_map
 
 SCHEMA = 2
 

@@ -35,6 +35,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.obs.staleness import (StalenessMetrics, record_audit,
                                        record_lag)
+from repro_torch.tree import tree_map
 
 I32 = torch.int32
 I64 = torch.int64
@@ -81,19 +82,6 @@ class StreamMetrics:
             overflow_first_epoch=torch.full((len(OVERFLOW_SOURCES),), NEVER,
                                             dtype=I64, device=device),
             staleness=StalenessMetrics.empty(device))
-
-
-def tree_map(fn, *trees):
-    """Apply `fn` leaf-wise over StreamMetrics (or StalenessMetrics) trees
-    of one structure, e.g. `tree_map(lambda *ls: torch.stack(ls), a, b)`
-    stacks per-shard metrics to [S, ...] leaves."""
-    first = trees[0]
-    out = {}
-    for f in dataclasses.fields(first):
-        leaves = [getattr(t, f.name) for t in trees]
-        out[f.name] = (tree_map(fn, *leaves)
-                       if dataclasses.is_dataclass(leaves[0]) else fn(*leaves))
-    return type(first)(**out)
 
 
 def pmin_bucket_counts(p_min, lane_valid, length: int) -> torch.Tensor:

@@ -242,6 +242,31 @@ def categorical(key: torch.Tensor, logits: torch.Tensor,
     return torch.argmax(noise + logits, dim=-1)
 
 
+_U32_MAX = (1 << 32) - 1
+
+
+def permutation(key: torch.Tensor, x) -> torch.Tensor:
+    """`jax.random.permutation(key, x)` for one key [2]: an int `x` shuffles
+    `arange(x)` (int64, as under x64), a tensor is shuffled along its first
+    axis (its rows, for more than one dimension).
+
+    As `jax._src.random._shuffle`: ceil(3 ln(max(1, n)) / ln(2^32 - 1))
+    rounds, each splitting off a subkey, drawing a 32-bit sort key per
+    element (bits1 ^ bits2 of the counter's threefry) and sorting by it
+    stably. torch sorts no uint32, so the keys sort as int64."""
+    if isinstance(x, int):
+        x = torch.arange(x, dtype=torch.int64, device=key.device)
+    n = x.shape[0]
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(_U32_MAX))
+    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    for _ in range(rounds):
+        key, sub = split(key)
+        b1, b2 = _iota_bits(sub, n)
+        order = torch.sort(b1 ^ b2, stable=True).indices
+        idx = idx[order]
+    return x[idx]
+
+
 def bernoulli(key: torch.Tensor, p=0.5, shape=None) -> torch.Tensor:
     """`jax.random.bernoulli(key, p, shape)` (mode "low"): uniform of p's
     dtype < p. A Python float p is float64, as under x64."""

@@ -824,3 +824,60 @@ def test_sharded_engine_on_the_card(dev, tmp_path):
     import chip_smoke
     checks = chip_smoke.phase_sharded_small(dev, str(tmp_path))
     assert checks and all(checks.values()), checks
+
+
+def test_trainer_on_the_card(dev, tmp_path):
+    """chip_smoke's phase 8a: the launcher's downstream and stream trainers
+    through TrainLoop at the wharf-stream smoke config, card = CPU (engines
+    bit for bit, metrics exact, tables within tolerance), and a crash after
+    step 2 resumed by a fresh trainer = the uninterrupted run."""
+    import chip_smoke
+    chip_smoke.phase_trainer_small(dev, str(tmp_path))
+
+
+def test_permutation_train_epoch_and_probe_on_card_equal_cpu(dev):
+    """`permutation` (3 rounds) bit for bit; `train_epoch`'s tables within
+    rtol 2e-4 / atol 1e-5 of the CPU's (its autograd scatter-adds in
+    another order) and its loss within rtol 1e-5; the probe's weights within
+    rtol 1e-4 / atol 1e-6 (f32, TF32 off) and the same accuracy."""
+    from repro_torch.models import embeddings as temb
+    for n in (1000, 3_000_000):
+        got = jr.permutation(jr.PRNGKey(n, dev), n)
+        assert got.is_cuda and torch.equal(got.cpu(), jr.permutation(jr.PRNGKey(n, "cpu"), n))
+    rng = np.random.default_rng(2)
+    walks = torch.from_numpy(rng.integers(0, 50, size=(40, 10)))
+    cfg = temb.SGNSConfig(n_vertices=50, dim=32, window=3, n_negative=4)
+    out = {}
+    for d in ("cpu", dev):
+        p = temb.sgns_init(jr.PRNGKey(3, d), cfg)
+        out[str(d)] = temb.train_epoch(jr.PRNGKey(4, d), p, walks.to(d), cfg, batch=256)
+    (pc, lc), (pd, ld) = out["cpu"], out[str(dev)]
+    for k in ("in", "out"):
+        torch.testing.assert_close(pd[k].cpu(), pc[k], rtol=2e-4, atol=1e-5)
+    torch.testing.assert_close(ld.cpu(), lc, rtol=1e-5, atol=0)
+    emb = torch.from_numpy(rng.normal(size=(300, 16)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 5, size=300))
+    x = emb / emb.norm(dim=1, keepdim=True)
+    tr = torch.arange(200)
+    wc = temb.logistic_probe(x, labels, tr)
+    wd = temb.logistic_probe(x.to(dev), labels.to(dev), tr.to(dev))
+    torch.testing.assert_close(wd.cpu(), wc, rtol=1e-4, atol=1e-6)
+    assert temb.logistic_eval(emb.to(dev), labels) == temb.logistic_eval(emb, labels)
+
+
+def test_checkpoint_of_card_tensors(dev, tmp_path):
+    """A save of card tensors is a host copy (a later in-place write does not
+    reach it); restore puts each leaf on its template's device, or on the
+    device `shardings` names."""
+    from repro_torch.train.checkpoint import CheckpointManager
+    state = {"a": torch.arange(10, device=dev), "n": 3,
+             "b": {"c": torch.ones(4, 4, device=dev)}}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(0, state)
+    state["a"].zero_()
+    mgr.wait()
+    out, _ = mgr.restore(state)
+    assert out["a"].is_cuda and torch.equal(out["a"].cpu(), torch.arange(10))
+    assert out["n"] == 3 and torch.equal(out["b"]["c"], state["b"]["c"])
+    out, _ = mgr.restore(state, shardings="cpu")
+    assert not out["a"].is_cuda and not out["b"]["c"].is_cuda

@@ -21,7 +21,8 @@ import test_torch_distr as T
 from repro_torch import convert
 from repro_torch.distr import ranks
 from repro_torch.obs.export import summary
-from repro_torch.obs.metrics import PMIN_BUCKETS, tree_map
+from repro_torch.obs.metrics import PMIN_BUCKETS
+from repro_torch.tree import tree_map
 
 PPR_RTOL = 1e-6      # tests/test_serve.py:138
 WINDOW_A, WINDOW_B = slice(0, 3), slice(3, None)
@@ -71,7 +72,7 @@ for policy in ("on-demand", "eager"):
 def rank_job(rank, inp):
     """A rank: the stream with metrics under both policies, and the two
     serving windows (B continuing A's shard state)."""
-    from repro_torch.obs.metrics import tree_map
+    from repro_torch.tree import tree_map
     res = {}
     for policy in T.POLICIES:
         st, aff, m, counts = T.shard_stream(rank, inp, policy, metrics=True)

@@ -143,3 +143,95 @@ def test_sgns_init_matches_jax():
     np.testing.assert_array_equal(tp["in"].numpy().view(np.int32),
                                   want.view(np.int32))
     assert not tp["out"].any() and tp["out"].shape == (300, 128)
+
+
+def record_steps(monkeypatch, module):
+    """Wrap `module.sgns_step` so that every call's pair batch and
+    negatives are kept (the reference's `train_epoch` calls its module's
+    `sgns_step`, the port's its own)."""
+    calls = []
+    inner = module.sgns_step
+
+    def wrapped(params, centers, contexts, negatives, lr):
+        calls.append(tuple(np.asarray(a).astype(np.int64)
+                           for a in (centers, contexts, negatives)))
+        return inner(params, centers, contexts, negatives, lr)
+
+    monkeypatch.setattr(module, "sgns_step", wrapped)
+    return calls
+
+
+@pytest.mark.parametrize("incremental,batch", [(False, 256), (True, 256), (False, 16)])
+def test_train_epoch_matches_jax(monkeypatch, incremental, batch):
+    """`train_epoch` in full and incremental mode (mask of 9 of 30 walks:
+    the reference pads the kept walks with 21 copies of walk 0): every
+    batch's permuted pairs and negatives exactly, the tables within rtol
+    2e-4 / atol 1e-5 and the mean loss within rtol 1e-5; a tail shorter
+    than the batch is dropped (1,080 pairs: 4 batches of 256, 56 left; or
+    67 batches of 16, past one slab of negatives, `NEG_SLAB` = 64)."""
+    import jax
+    rng = np.random.default_rng(11)
+    n, w, length = 40, 30, 8
+    walks = rng.integers(0, n, size=(w, length))
+    mask = np.zeros(w, bool)
+    mask[rng.choice(w, 9, replace=False)] = True
+    p0 = {"in": (rng.normal(size=(n, 16)) * 0.25).astype(np.float32),
+          "out": (rng.normal(size=(n, 16)) * 0.1).astype(np.float32)}
+    kw = dict(n_vertices=n, dim=16, window=3, n_negative=4)
+    key = jax.random.PRNGKey(21)
+    j_calls = record_steps(monkeypatch, jemb)
+    t_calls = record_steps(monkeypatch, temb)
+    jp, jl = jemb.train_epoch(
+        key, {k: jnp.asarray(v) for k, v in p0.items()},
+        jnp.asarray(walks, jnp.uint32), jemb.SGNSConfig(**kw), batch=batch,
+        walk_mask=jnp.asarray(mask) if incremental else None)
+    tp, tl = temb.train_epoch(
+        jr.as_key(np.asarray(key), "cpu"),
+        {k: torch.from_numpy(v.copy()) for k, v in p0.items()},
+        torch.from_numpy(walks), temb.SGNSConfig(**kw), batch=batch,
+        walk_mask=torch.from_numpy(mask) if incremental else None)
+    assert len(t_calls) == len(j_calls) == 1080 // batch
+    assert batch == 256 or len(t_calls) > temb.NEG_SLAB
+    for (tc, tx, tn), (jc, jx, jn) in zip(t_calls, j_calls):
+        np.testing.assert_array_equal(tc, jc)
+        np.testing.assert_array_equal(tx, jx)
+        np.testing.assert_array_equal(tn, jn)
+    if incremental:    # the padding rows are walk 0's: its pairs dominate
+        zero = set(walks[0].tolist())
+        assert np.isin(t_calls[0][0], list(zero)).mean() > 0.5
+    assert_tables_close(tp, jp)
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
+
+
+def test_logistic_eval_matches_jax():
+    """The probe's accuracy equal to the reference's (its f32 mean too),
+    and its weights within rtol 1e-4 / atol 1e-6 of the reference's steps
+    (the same f32 gradient descent, written out here in JAX)."""
+    import jax
+    rng = np.random.default_rng(12)
+    labels = rng.integers(0, 5, size=300)
+    centres = rng.normal(size=(5, 16))
+    emb = (centres[labels] + 1.5 * rng.normal(size=(300, 16))).astype(np.float32)
+    want = jemb.logistic_eval(emb, labels)
+    got = temb.logistic_eval(emb, labels, device="cpu")
+    assert got == want and 0.3 < got < 1.0
+    assert temb.logistic_eval(torch.from_numpy(emb), torch.from_numpy(labels)) == want
+    # the probe's weights
+    perm = np.random.default_rng(0).permutation(300)
+    tr = perm[:210]
+    x = jnp.asarray(emb)
+    x = x / jnp.maximum(jnp.linalg.norm(x, axis=1, keepdims=True), 1e-6)
+    y = jnp.asarray(labels, jnp.int32)
+
+    def loss(w):
+        logits = x[tr] @ w
+        return -jnp.take_along_axis(jax.nn.log_softmax(logits, -1),
+                                    y[tr, None], axis=1).mean()
+
+    step = jax.jit(lambda w: w - 0.5 * jax.grad(loss)(w))
+    w_j = jnp.zeros((16, 5), jnp.float32)
+    for _ in range(300):
+        w_j = step(w_j)
+    xt = torch.from_numpy(np.array(x))
+    w_t = temb.logistic_probe(xt, torch.from_numpy(labels), torch.from_numpy(tr))
+    np.testing.assert_allclose(w_t.numpy(), np.asarray(w_j), rtol=1e-4, atol=1e-6)

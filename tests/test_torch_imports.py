@@ -69,7 +69,13 @@ def test_every_module_imports_without_a_card():
                                     "repro_torch.configs.wharf_stream",
                                     "repro_torch.distr.sharded",
                                     "repro_torch.distr.engine",
-                                    "repro_torch.distr.ranks"])
+                                    "repro_torch.distr.ranks",
+                                    "repro_torch.train.checkpoint",
+                                    "repro_torch.train.runtime",
+                                    "repro_torch.train.optim",
+                                    "repro_torch.train.compression",
+                                    "repro_torch.launch.train",
+                                    "repro_torch.tree"])
 def test_each_module_imports_first_in_a_fresh_process(module):
     """The core and the kernel wrappers import each other; any one of them
     imported first must still work, and pull in neither JAX nor the JAX
@@ -103,6 +109,17 @@ def test_entry_points_raise_without_a_card():
         streams.rmat_edges([0, 1], 4, 3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         packed_store.get_default_backend()
+    from repro_torch.launch import train as launch
+    from repro_torch.models import embeddings
+    from repro_torch.train.runtime import TrainLoop
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TrainLoop(step_fn=None, batch_fn=None, ckpt=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.downstream_trainer("wharf-stream", True, 16, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.wharf_trainer("wharf-stream", True, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        embeddings.logistic_eval([[1.0, 0.0], [0.0, 1.0]], [0, 1])
 
 
 def test_kernel_wrappers_never_fall_back():

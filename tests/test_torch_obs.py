@@ -41,7 +41,8 @@ from repro_torch.kernels import ops
 from repro_torch.obs import NEVER, PMIN_BUCKETS, StreamMetrics
 from repro_torch.obs import export, regress, slo
 from repro_torch.obs import trace as obs_trace
-from repro_torch.obs.metrics import combine_shards, tree_map
+from repro_torch.obs.metrics import combine_shards
+from repro_torch.tree import tree_map
 from repro_torch.obs.staleness import AUDIT_SALT, audit_invalid_count
 from repro_torch.serve import WalkQueryService
 

@@ -264,3 +264,36 @@ def test_bernoulli_matches_jax():
         want = np.asarray(jax.random.bernoulli(kj, p))
         np.testing.assert_array_equal(jr.bernoulli(kt, torch.from_numpy(p)).numpy(),
                                       want)
+
+
+# 1,000, 100,000 and 3,000,000 elements take 1, 2 and 3 sort rounds
+@pytest.mark.parametrize("n,rounds", [(1000, 1), (100_000, 2), (3_000_000, 3)])
+@pytest.mark.parametrize("kind", ["int", "array"])
+def test_permutation_matches_jax(n, rounds, kind):
+    """`permutation` bit for bit: of arange(n) for an int, of a 1-D
+    array's elements (random values, repeats included) for an array."""
+    import math
+    assert math.ceil(3 * math.log(n) / math.log(2**32 - 1)) == rounds
+    kj = jax.random.PRNGKey(n + len(kind))
+    if kind == "int":
+        x_j, x_t = n, n
+    else:
+        x = np.random.default_rng(n).integers(0, n // 3, size=n, dtype=np.int32)
+        x_j, x_t = jnp.asarray(x), torch.from_numpy(x)
+    want = np.asarray(jax.random.permutation(kj, x_j))
+    got = jr.permutation(jr.as_key(_np(kj), "cpu"), x_t)
+    assert got.dtype == (torch.int64 if kind == "int" else torch.int32)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_permutation_of_rows_and_edge_sizes_match_jax():
+    """A 2-D array is shuffled by rows; 0 and 1 elements take no round."""
+    kj = jax.random.PRNGKey(17)
+    x = np.random.default_rng(1).normal(size=(300, 3)).astype(np.float32)
+    np.testing.assert_array_equal(
+        jr.permutation(jr.as_key(_np(kj), "cpu"), torch.from_numpy(x)).numpy(),
+        np.asarray(jax.random.permutation(kj, jnp.asarray(x))))
+    for n in (0, 1, 2):
+        np.testing.assert_array_equal(
+            jr.permutation(jr.as_key(_np(kj), "cpu"), n).numpy(),
+            np.asarray(jax.random.permutation(kj, n)))
