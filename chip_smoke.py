@@ -43,7 +43,7 @@ every phase passed):
      unfused and again fused from the same corpus and keys; the two runs'
      stores, slot_epoch and pending blocks must be bit-identical; merge,
      overlay traverse = post-merge traverse; one more batch of each path
-     under torch.profiler — the order-2 main paths, counts read just after:
+     (the unfused one under torch.profiler) — the order-2 main paths, counts read just after:
      the corpus and the unfused batches launch the CSR intersect kernel,
      the fused batches the fused step and no intersect kernel, and no path
      builds a neighbor window (`intersect.neighbor_window` is never called)
@@ -123,6 +123,23 @@ every phase passed):
      than one full retrain; then the whole check at the test's own sizes
      on the card and the CPU (walks and counts equal, the maintainer's
      tables within tolerance).
+  9. the LM family and DLRM (models/transformer.py, models/dlrm.py), with
+     the kernel counts set to 0 just before and read just after (none of
+     the seven kernels lies on their paths). 9a: all five LM archs and
+     dlrm-rm2 at their smoke configs in f32 (TF32 off), card against CPU:
+     init bit for bit; forward, loss, gradients, prefill and decode within
+     rtol 1e-4 / atol 1e-5 (DLRM 1e-5 / 1e-6), the MoE routing exactly;
+     the launcher's `lm_trainer` for 4 steps, tokens exact. 9b: gemma2-2b
+     at full width and depth in bf16 through the launcher (init timed, 3
+     steps of 1 x 4,096 tokens, the closing ~26 GB save), then served from
+     the trained weights (prefill of 4,096, 64 decode steps past the local
+     window) against one forward over the 4,160 tokens; in f32 at depth 2
+     decode = forward within 2e-3 and card = CPU within 1e-4. 9c:
+     qwen2-moe-a2.7b at full width (16 of its 24 layers) in bf16, prefill
+     of 2,048 (the rows each MoE layer drops) and 16 decode steps; f32 card
+     = CPU at depth 1 with the routing exact. 9d: dlrm-rm2 at full width:
+     serve_p99, serve_bulk, retrieval_cand and one train_batch step, card
+     = CPU at B = 512. The cuts are printed as `reduced_lm`.
 Phase 2 also runs a small maintainer on the card against the CPU and
 against a plain engine, and the order-1 stream with `WalkConfig(metrics=
 True)` on the card: its state equals the plain run's, its counters equal
@@ -173,6 +190,8 @@ from repro_torch.downstream import EmbeddingMaintainer, MaintainerConfig  # noqa
 from repro_torch.kernels import _build, delta, intersect, megakernel, ops  # noqa: E402
 from repro_torch.kernels import range_search, sgns, szudzik  # noqa: E402
 from repro_torch.launch import train as launch  # noqa: E402
+from repro_torch.models import dlrm  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.embeddings import (SGNSConfig, logistic_eval, sgns_init,  # noqa: E402
                                           train_epoch, window_pairs)
 from repro_torch.core import update  # noqa: E402
@@ -180,6 +199,7 @@ from repro_torch.obs import export, slo  # noqa: E402
 from repro_torch.serve import WalkQueryService, batched  # noqa: E402
 from repro_torch import tree as ttree  # noqa: E402
 from repro_torch.train.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.train.optim import AdamWConfig, adamw_init, adamw_update  # noqa: E402
 from repro_torch.train.runtime import TrainLoop  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
@@ -203,9 +223,11 @@ REDUCED = {"n_vertices": "2^20 -> 2^18 (8 pending blocks of a 2^20 corpus exceed
 # (src/repro/configs/wharf_stream.py:26-32, 178-194), cut as CONFIG
 N2V = dict(CONFIG, batch_deletes=0, n_batches=3, p=1.0, q=1.0,
            sampler="factorized", dmax=128)
-N2V_REDUCED = dict(REDUCED, n_batches="3 timed batches and 1 profiled batch "
-                   "per path (the profiled one with 3 pending blocks; the run's "
-                   "time limit)")
+N2V_REDUCED = dict(REDUCED, n_batches="3 timed batches and 1 more batch per path "
+                   "(with 3 pending blocks; the run's time limit)",
+                   profiled="the unfused path's extra batch only: the fused one "
+                            "runs unprofiled (the profiler's trace of it took "
+                            "~100 s of the run's time limit)")
 ORDER1_KERNELS = ("szudzik_pair", "szudzik_unpair", "delta_decode",
                   "find_next_packed")
 
@@ -292,6 +314,48 @@ QUALITY_SMALL = dict(QUALITY, n_vertices=128, n_edges=512, n_classes=5,
 # the maintainer's tables, card against CPU or resumed against
 # uninterrupted: the reference's tolerance for a scatter-added SGNS step
 TABLE_TOL = dict(rtol=2e-4, atol=1e-5)
+
+# phase 9: the LM family (src/repro/configs/lm_archs.py:35-67) and
+# dlrm-rm2 (src/repro/configs/recsys_archs.py:13-17) with their shapes
+# (src/repro/configs/base.py:9-32), cut as LM_REDUCED says. 9a at the
+# smoke configs, card = CPU; 9b gemma2-2b trained through the launcher and
+# served; 9c qwen2-moe-a2.7b served; 9d dlrm-rm2's four shapes
+LM_ARCHS = ("mistral-nemo-12b", "qwen1.5-110b", "gemma2-2b", "qwen2-moe-a2.7b",
+            "llama4-maverick-400b-a17b")
+LM = dict(small=dict(batch=2, seq=16, steps=4),
+          gemma=dict(arch="gemma2-2b", batch=1, seq=4096, steps=3, decode=64,
+                     f32_layers=2, cpu_tokens=256),
+          qwen=dict(arch="qwen2-moe-a2.7b", prefill=2048, decode=16, f32_layers=1,
+                    cpu_tokens=512, over=dict(n_layers=16)),
+          dlrm=dict(arch="dlrm-rm2", serve_p99=512, serve_bulk=262_144, retrieval=1_000_000,
+                    train=65_536, reps=5),
+          seeds=dict(tokens=9090, dlrm=9091))
+LM_REDUCED = dict(
+    train_4k="global batch 256 x 4,096 -> 1 x 4,096 (one chip's microbatch: "
+             "src/repro/launch/steps.py:75 gives each chip one sequence), 3 steps",
+    prefill_32k="32 x 32,768 tokens -> 1 x 4,096 (the reference materializes [S, S] "
+                "scores: 34 GB a layer at 32k)",
+    decode_32k="batch 128 at 32,768 -> 1 sequence, 64 steps after the 4,096 prefill "
+               "(the full-depth K/V caches of 128 x 32k are 447 GB)",
+    long_500k="not run (decode at 524,288 positions: a 55 GB cache at B = 1)",
+    gemma_f32="depth 26 -> 2 for the f32 checks; card = CPU over the first 256 "
+              "tokens (the CPU's time; the card's decode = forward runs the 4,160)",
+    qwen_depth="qwen2-moe-a2.7b 24 -> 16 layers (10,304,915,456 stored parameters, "
+               "20.6 GB): its init draws 202M normals/s on an H100, 75 s at full "
+               "depth, over its share of the phase's time",
+    qwen_prefill="qwen2-moe-a2.7b serves 1 x 2,048 tokens and 16 decode steps; "
+                 "f32 card = CPU at depth 1 over 512 tokens",
+    mistral_qwen110_llama4="not run at full width: 9a only (smoke configs); "
+                           "qwen1.5-110b and llama4-maverick need more than one card",
+    dlrm_train="one train_batch step (B = 65,536)")
+# card against CPU in f32 (TF32 off): the CPU tests' tolerance against JAX
+LM_TOL = dict(rtol=1e-4, atol=1e-5)
+DLRM_TOL = dict(rtol=1e-5, atol=1e-6)
+# 9b's bf16 decode (one token through the cache) against one forward over
+# the 4,160 tokens: the same weights and casts, but other product shapes,
+# so other f32 sum orders and bf16 roundings in each of 26 layers. The
+# logits are ~N(0, 1) (embedding std 0.02 x sqrt(2,304)), capped at 30
+LM_BF16_TOL = dict(rtol=0.05, atol=0.25)
 
 KERNEL_META = {
     "szudzik_pair": ("src/repro_torch/kernels/csrc/szudzik.cu",
@@ -1103,21 +1167,26 @@ def phase_full_n2v(dev):
                     raise AssertionError(f"order 2: fused != unfused in {k}")
             del saved
         del state
-        # one more batch under the profiler, with 3 pending blocks; the
-        # operands of one call of each kernel named here are kept for
-        # phase 5 (unfused: a rewalk step's kernel 5, and the first
-        # prefix-read call's kernel 4, whose device time and share of the
-        # prefix read the profile reports)
+        # one more batch, with 3 pending blocks (the unfused path's under
+        # the profiler; parsing a fused batch's trace took ~100 s of the
+        # run's time limit); the operands of one call of each kernel named
+        # here are kept for phase 5 (unfused: a rewalk step's kernel 5, and
+        # the first prefix-read call's kernel 4, whose device time and
+        # share of the prefix read the profile reports)
         if path == "unfused":
             keep = {"intersect_csr": cfg.length // 2, "find_next_packed": 0}
-            watch = dict(kernel="search_kernel", layer="wharf.prefix")
         else:
-            keep, watch = {"fused_rewalk_step": 5}, {}
+            keep = {"fused_rewalk_step": 5}
         with contextlib.ExitStack() as stack:
             got = {name: stack.enter_context(keep_operands(name, at))
                    for name, at in keep.items()}
             wins = stack.enter_context(window_calls())
-            prof = profile_batch(lambda: n2v_batch(eng, ins, nb), **watch)
+            if path == "unfused":
+                prof = profile_batch(lambda: n2v_batch(eng, ins, nb),
+                                     kernel="search_kernel", layer="wharf.prefix")
+            else:
+                _, dt = sync_time(lambda: n2v_batch(eng, ins, nb))
+                prof = dict(wall_ms=dt * 1e3, device_busy="not measured (not profiled)")
         windows[path] += wins[0]
         for name, g in got.items():
             assert g, f"{name}: operands not kept"
@@ -2692,6 +2761,448 @@ def phase_quality(dev):
     return card
 
 
+# ---------------------------------------------------------------- phase 9
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """f32 products in f32 (no TF32) inside, as the card-vs-CPU checks
+    need; the earlier settings after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def moe_routing():
+    """Record each `transformer.moe_route` call's (top_e, pos, keep) while
+    inside -> the list of calls (one a MoE layer a forward)."""
+    calls, route = [], tfm.moe_route
+
+    def rec(xt, router, m):
+        out = route(xt, router, m)
+        calls.append(tuple(t.cpu() for t in out[1:4]))
+        return out
+
+    tfm.moe_route = rec
+    try:
+        yield calls
+    finally:
+        tfm.moe_route = route
+
+
+@contextlib.contextmanager
+def synced_calls(module, name: str):
+    """Record the synced seconds of each call of `module.name` inside."""
+    seconds, fn = [], getattr(module, name)
+
+    def timed(*a, **kw):
+        out, dt = sync_time(lambda: fn(*a, **kw))
+        seconds.append(dt)
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield seconds
+    finally:
+        setattr(module, name, fn)
+
+
+def value_and_grad(fn, params, *args):
+    """(loss, gradient tree) of fn(params, *args) through autograd."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in ttree.leaf_paths(params).items()}
+    loss = fn(ttree.rebuild(params, leaves), *args)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), ttree.rebuild(params, dict(zip(leaves, grads)))
+
+
+def to_device(tree, d):
+    return ttree.tree_map(lambda t: t.to(d), tree)
+
+
+def close(got, want, what: str, rtol: float, atol: float) -> float:
+    """torch.testing.assert_close on the CPU -> the max abs difference."""
+    got, want = got.detach().cpu(), want.detach().cpu()
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                               msg=lambda m: f"{what}: {m}")
+    return float((got.float() - want.float()).abs().max())
+
+
+def trees_close(got, want, what: str, rtol: float, atol: float) -> float:
+    w = ttree.leaf_paths(want)
+    return max(close(v, w[k], f"{what} {k}", rtol, atol)
+               for k, v in ttree.leaf_paths(got).items())
+
+
+def routing_equal(a: list, b: list, what: str) -> int:
+    """Two runs' MoE routing, call by call: top_e, pos and keep exactly ->
+    the rows dropped beyond capacity."""
+    assert len(a) == len(b) > 0, (what, len(a), len(b))
+    for i, (x, y) in enumerate(zip(a, b)):
+        for name, u, v in zip(("top_e", "pos", "keep"), x, y):
+            if not torch.equal(u, v):
+                raise AssertionError(f"{what}: MoE layer {i} {name} differs")
+    return sum(int((~keep).sum()) for _, _, keep in a)
+
+
+def lm_small_run(arch: str, d) -> dict:
+    """One smoke arch on device d (f32): init, forward, loss and
+    gradients, prefill of 8 and one decode step from a 16-slot cache (as
+    tests/test_archs.py), with the MoE routing of each."""
+    cfg = get_arch(arch).make_config(True)
+    params = tfm.init_params(jr.PRNGKey(0, d), cfg)
+    toks = jr.randint(jr.PRNGKey(1, d), (2, 17), 0, cfg.vocab_size, dtype=torch.int32)
+    out = {"params": params}
+    with moe_routing() as route:
+        with torch.no_grad():
+            out["logits"] = tfm.forward(params, toks[:, :-1], cfg)
+        out["loss"], out["grads"] = value_and_grad(
+            lambda p, t: tfm.lm_loss(p, t, cfg), params, toks)
+        out["last"], pc = tfm.prefill(params, toks[:, :8], cfg)
+        cache = tfm.init_kv_cache(cfg, 2, 16, device=d)
+        cache["k"][:, :, :8], cache["v"][:, :, :8] = pc["k"], pc["v"]
+        out["decode"], out["cache"] = tfm.decode_step(params, toks[:, 8:9], cache, 8, cfg)
+    out["routing"] = route
+    return out
+
+
+def lm_trainer_run(d, workdir: str) -> dict:
+    """The launcher's `lm_trainer` at gemma2-2b smoke through TrainLoop on
+    device d -> tokens and metrics by step."""
+    s = LM["small"]
+    state, step_fn, batch_fn = launch.lm_trainer(LM["gemma"]["arch"], True, s["batch"],
+                                                 s["seq"], device=d)
+    tokens, metrics = {}, {}
+
+    def batches(step, key):
+        tokens[step] = batch_fn(step, key)
+        return tokens[step]
+
+    loop = TrainLoop(step_fn=step_fn, batch_fn=batches,
+                     ckpt=CheckpointManager(tempfile.mkdtemp(dir=workdir), keep=1),
+                     ckpt_every=s["steps"] + 1, device=d)
+    loop.run(state, 0, s["steps"], lambda step, dt, m: metrics.__setitem__(step, m))
+    return dict(tokens=tokens, metrics=metrics)
+
+
+def phase_lm_small(dev, workdir):
+    """Phase 9a: every LM arch's smoke config and DLRM's, card against CPU
+    in f32 with TF32 off: init bit for bit, forward, loss and gradients,
+    prefill and decode within LM_TOL, the MoE routing exact; then the
+    launcher's `lm_trainer` at gemma2-2b smoke for 4 steps, tokens exact,
+    loss and gradient norm within rtol 1e-5."""
+    cpu = torch.device("cpu")
+    out = {}
+    with tf32_off():
+        for arch in LM_ARCHS:
+            a, b = lm_small_run(arch, dev), lm_small_run(arch, cpu)
+            for k, v in ttree.leaf_paths(a["params"]).items():
+                assert torch.equal(v.cpu(), ttree.leaf_paths(b["params"])[k]), (arch, k)
+            err = {k: close(a[k], b[k], f"9a {arch} {k}", **LM_TOL)
+                   for k in ("logits", "loss", "last", "decode")}
+            for k in ("grads", "cache"):
+                err[k] = trees_close(a[k], b[k], f"9a {arch} {k}", **LM_TOL)
+            dropped = (routing_equal(a["routing"], b["routing"], f"9a {arch}")
+                       if get_arch(arch).make_config(True).moe else None)
+            out[arch] = dict(max_abs_err=err, moe_rows_dropped=dropped)
+        d = dlrm_small(dev)
+        runs = {k: lm_trainer_run(k, workdir) for k in (cpu, dev)}
+    card, host = runs[dev], runs[cpu]
+    assert sorted(card["tokens"]) == list(range(LM["small"]["steps"]))
+    for s, t in host["tokens"].items():
+        assert t.dtype == torch.int32 and torch.equal(card["tokens"][s].cpu(), t), s
+        for k in ("loss", "gnorm"):
+            want = host["metrics"][s][k]
+            assert abs(card["metrics"][s][k] - want) <= 1e-5 * abs(want), (s, k)
+    log("lm_small", ok=True, archs=out, dlrm=d,
+        trainer=dict(steps=LM["small"]["steps"],
+                     loss_card=[m["loss"] for m in card["metrics"].values()],
+                     loss_cpu=[m["loss"] for m in host["metrics"].values()]))
+
+
+def dlrm_inputs(cfg, b: int, gen, d):
+    dense = torch.randn((b, cfg.n_dense), generator=gen, device=d)
+    sparse = torch.randint(0, cfg.table_rows, (b, cfg.n_sparse, cfg.multi_hot),
+                           generator=gen, device=d)
+    labels = torch.randint(0, 2, (b,), generator=gen, device=d).float()
+    return dense, sparse, labels
+
+
+def dlrm_step(params, opt, batch, cfg):
+    """The train_batch step of launch/steps.py:471-479: `dlrm_loss`, its
+    gradients, one AdamW update at `AdamWConfig()`."""
+    loss, grads = value_and_grad(lambda p, *a: dlrm.dlrm_loss(p, *a, cfg), params, *batch)
+    with torch.no_grad():
+        params, opt, gnorm = adamw_update(grads, opt, params, AdamWConfig())
+    return params, opt, loss, gnorm
+
+
+def dlrm_small(dev) -> dict:
+    """9a for DLRM: smoke config, card = CPU: init bit for bit; forward,
+    loss, gradients and one train step at DLRM_TOL; retrieval too."""
+    cfg = get_arch(LM["dlrm"]["arch"]).make_config(True)
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(LM["seeds"]["dlrm"])
+    batch = dlrm_inputs(cfg, 64, gen, cpu)
+    cand = torch.randn((300, cfg.embed_dim), generator=gen)
+    res = {}
+    for d in (cpu, dev):
+        p = dlrm.dlrm_init(jr.PRNGKey(0, d), cfg)
+        b = [t.to(d) for t in batch]
+        logits = dlrm.dlrm_forward(p, b[0], b[1], cfg)
+        scores = dlrm.retrieval_score(p, b[0][:1], b[1][:1], cand.to(d), cfg)
+        p2, _, loss, gnorm = dlrm_step(p, adamw_init(p), b, cfg)
+        res[d.type] = dict(p=p, logits=logits, scores=scores, p2=p2, loss=loss, gnorm=gnorm)
+    a, h = res[dev.type], res["cpu"]
+    for k, v in ttree.leaf_paths(a["p"]).items():
+        assert torch.equal(v.cpu(), ttree.leaf_paths(h["p"])[k]), ("9a dlrm init", k)
+    err = {k: close(a[k], h[k], f"9a dlrm {k}", **DLRM_TOL)
+           for k in ("logits", "scores", "loss", "gnorm")}
+    err["params_after_step"] = trees_close(a["p2"], h["p2"], "9a dlrm step", **DLRM_TOL)
+    return err
+
+
+def lm_config(part: str):
+    """The full-width config of LM[part], with the part's cuts."""
+    p = LM[part]
+    return get_arch(p["arch"]).make_config().replace(**p.get("over", {}))
+
+
+def serve_lm(params, cfg, toks, n_prefill: int, n_decode: int) -> dict:
+    """`prefill` over toks[:, :n_prefill], then n_decode `decode_step`s
+    from its cache (max_len n_prefill + n_decode), each synced -> logits
+    and times."""
+    d = toks.device
+    (last, pc), t_prefill = sync_time(lambda: tfm.prefill(params, toks[:, :n_prefill], cfg))
+    cache = tfm.init_kv_cache(cfg, toks.shape[0], n_prefill + n_decode, device=d)
+    cache["k"][:, :, :n_prefill], cache["v"][:, :, :n_prefill] = pc["k"], pc["v"]
+    del pc
+    logits, ms = [], []
+    for i in range(n_decode):
+        pos = n_prefill + i
+        (lg, cache), dt = sync_time(lambda: tfm.decode_step(
+            params, toks[:, pos:pos + 1], cache, pos, cfg))
+        logits.append(lg[:, 0])
+        ms.append(dt * 1e3)
+    return dict(last=last, decoded=torch.stack(logits, dim=1), prefill_s=t_prefill,
+                decode_ms=ms, cache_bytes=2 * cache["k"].numel() * cache["k"].element_size())
+
+
+def phase_lm_gemma(dev, workdir) -> dict:
+    """Phase 9b: gemma2-2b at full width and depth in bf16. The launcher's
+    `lm_trainer` (init on the card, timed) through TrainLoop at batch 1 x
+    4,096 tokens for 3 steps and its closing blocking save; then serving
+    from the trained weights: a 4,096-token prefill and 64 decode steps
+    (positions 4,096-4,159, past the local layers' window) against one
+    forward over the 4,160 tokens within LM_BF16_TOL; then in f32 at depth
+    2 (TF32 off) decode = forward within 2e-3 and card = CPU logits over
+    the first `cpu_tokens` within rtol 1e-4 / atol 1e-4."""
+    g = LM["gemma"]
+    cfg = lm_config("gemma")
+    torch.cuda.reset_peak_memory_stats()
+    with synced_calls(tfm, "init_params") as init_s:
+        (state, step_fn, batch_fn), build_s = sync_time(
+            lambda: launch.lm_trainer(g["arch"], False, g["batch"], g["seq"], device=dev))
+    params_bytes = nbytes_of(state["params"])
+    state_bytes = nbytes_of(state)
+    free = shutil.disk_usage(workdir).free
+    log("lm_disk", workdir_free_bytes=free, checkpoint_bytes=state_bytes)
+    if free < 1.2 * state_bytes:
+        raise RuntimeError(f"phase 9b: {free / 1e9:.1f} GB free under {workdir}, "
+                           f"the checkpoint needs {state_bytes / 1e9:.1f} GB")
+    steps = {}
+
+    def on_metrics(step, dt, m):
+        steps[step] = dict(m, ms=dt * 1e3, tokens_per_s=g["batch"] * g["seq"] / dt,
+                           peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+
+    loop = TrainLoop(step_fn=step_fn, batch_fn=batch_fn,
+                     ckpt=CheckpointManager(tempfile.mkdtemp(prefix="lm_", dir=workdir), keep=1),
+                     ckpt_every=g["steps"] + 1, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    state = loop.run(state, 0, g["steps"], on_metrics)
+    for s, m in steps.items():
+        assert np.isfinite(m["loss"]) and np.isfinite(m["gnorm"]), (s, m)
+    save = dict(loop.ckpt.saves[-1])
+    shutil.rmtree(loop.ckpt.dir, ignore_errors=True)
+    params = state["params"]
+    del state, loop, step_fn, batch_fn
+    torch.cuda.empty_cache()
+
+    # serving from the trained weights, bf16
+    torch.cuda.reset_peak_memory_stats()
+    n, k = g["seq"], g["decode"]
+    toks = jr.randint(jr.PRNGKey(LM["seeds"]["tokens"], dev), (1, n + k), 0,
+                      cfg.vocab_size, dtype=torch.int32)
+    srv = serve_lm(params, cfg, toks, n, k)
+    with torch.no_grad():
+        full, t_fwd = sync_time(lambda: tfm.forward(params, toks, cfg))
+    want = full[:, n:]
+    bf16_err = close(srv["decoded"], want, "9b bf16 decode vs forward", **LM_BF16_TOL)
+    last_err = close(srv["last"], full[:, n - 1], "9b bf16 prefill vs forward", **LM_BF16_TOL)
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, full, want, srv["decoded"]
+    torch.cuda.empty_cache()
+
+    # f32 at depth 2: decode = forward, card = CPU
+    with tf32_off():
+        c32 = cfg.replace(n_layers=g["f32_layers"], dtype=torch.float32, remat=False)
+        p32 = tfm.init_params(jr.PRNGKey(0, dev), c32)
+        s32 = serve_lm(p32, c32, toks, n, k)
+        with torch.no_grad():
+            f32_full = tfm.forward(p32, toks, c32)
+        f32_err = close(s32["decoded"], f32_full[:, n:], "9b f32 decode vs forward",
+                        rtol=2e-3, atol=2e-3)
+        del f32_full, s32
+        m = g["cpu_tokens"]
+        with torch.no_grad():
+            card = tfm.forward(p32, toks[:, :m], c32)
+            host = tfm.forward(to_device(p32, "cpu"), toks[:, :m].cpu(), c32)
+        cpu_err = close(card, host, "9b f32 card vs cpu", rtol=1e-4, atol=1e-4)
+    del p32, card, host
+    torch.cuda.empty_cache()
+    return dict(
+        config=dict(arch=g["arch"], n_layers=cfg.n_layers, d_model=cfg.d_model,
+                    params=cfg.param_count(), params_bytes=params_bytes),
+        init_s=init_s[0], build_s=build_s, train_steps=steps, save=save,
+        state_bytes=state_bytes,
+        serve=dict(prefill_tokens=n, prefill_s=srv["prefill_s"],
+                   prefill_tokens_per_s=n / srv["prefill_s"], decode_steps=k,
+                   decode_ms=srv["decode_ms"],
+                   decode_tokens_per_s=k / (sum(srv["decode_ms"]) / 1e3),
+                   kv_cache_bytes=srv["cache_bytes"], forward_4160_s=t_fwd,
+                   peak_gb=serve_peak),
+        max_abs_err=dict(bf16_decode_vs_forward=bf16_err, bf16_prefill_vs_forward=last_err,
+                         f32_decode_vs_forward=f32_err, f32_card_vs_cpu=cpu_err))
+
+
+def phase_lm_qwen(dev) -> dict:
+    """Phase 9c: qwen2-moe-a2.7b at full width in bf16 (64 padded experts):
+    init on the card, timed; a 2,048-token prefill (the rows each MoE layer
+    drops beyond capacity counted) and 16 decode steps; then in f32 at
+    depth 1, card = CPU over `cpu_tokens` with the routing exact."""
+    q = LM["qwen"]
+    cfg = lm_config("qwen")
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = sync_time(lambda: tfm.init_params(jr.PRNGKey(0, dev), cfg))
+    n, k = q["prefill"], q["decode"]
+    toks = jr.randint(jr.PRNGKey(LM["seeds"]["tokens"] + 1, dev), (1, n + k), 0,
+                      cfg.vocab_size, dtype=torch.int32)
+    with moe_routing() as route:
+        srv = serve_lm(params, cfg, toks, n, k)
+    assert bool(torch.isfinite(srv["decoded"]).all()) and bool(torch.isfinite(srv["last"]).all())
+    dropped = [int((~keep).sum()) for _, _, keep in route[:cfg.n_layers]]
+    cap = max(1, int(n * cfg.moe.top_k * cfg.moe.capacity_factor / cfg.moe.n_experts))
+    serve = dict(prefill_tokens=n, prefill_s=srv["prefill_s"],
+                 prefill_tokens_per_s=n / srv["prefill_s"], decode_steps=k,
+                 decode_ms=srv["decode_ms"],
+                 decode_tokens_per_s=k / (sum(srv["decode_ms"]) / 1e3),
+                 kv_cache_bytes=srv["cache_bytes"],
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    params_bytes = nbytes_of(params)
+    del params, srv
+    torch.cuda.empty_cache()
+    with tf32_off():
+        c32 = cfg.replace(n_layers=q["f32_layers"], dtype=torch.float32)
+        p32 = tfm.init_params(jr.PRNGKey(0, dev), c32)
+        m = q["cpu_tokens"]
+        with torch.no_grad(), moe_routing() as r_card:
+            card = tfm.forward(p32, toks[:, :m], c32)
+        with torch.no_grad(), moe_routing() as r_host:
+            host = tfm.forward(to_device(p32, "cpu"), toks[:, :m].cpu(), c32)
+        f32_dropped = routing_equal(r_card, r_host, "9c f32 card vs cpu")
+        cpu_err = close(card, host, "9c f32 card vs cpu", rtol=1e-4, atol=1e-4)
+    del p32, card, host
+    torch.cuda.empty_cache()
+    return dict(
+        config=dict(arch=q["arch"], n_layers=cfg.n_layers, d_model=cfg.d_model,
+                    experts_stored=cfg.moe.e_padded, params_bytes=params_bytes),
+        init_s=init_s, init_params_per_s=params_bytes / 2 / init_s, serve=serve,
+        prefill_rows_dropped_per_layer=dropped, capacity=cap,
+        f32_rows_dropped=f32_dropped, max_abs_err=dict(f32_card_vs_cpu=cpu_err))
+
+
+def median_call_ms(fn, reps: int) -> tuple:
+    """(first call's synced ms, median synced ms of `reps` more calls)."""
+    _, first = sync_time(fn)
+    times = [sync_time(fn)[1] * 1e3 for _ in range(reps)]
+    return first * 1e3, float(np.median(times))
+
+
+def phase_lm_dlrm(dev) -> dict:
+    """Phase 9d: dlrm-rm2 at full width in f32 (26 tables of 1,000,000 x
+    64): init on the card, timed; its serve_p99 (B = 512), serve_bulk
+    (B = 262,144) and retrieval_cand (1 query x 1,000,000 candidates)
+    shapes, each call synced; one train_batch step (B = 65,536); card =
+    CPU at B = 512 within DLRM_TOL (TF32 off)."""
+    c = LM["dlrm"]
+    cfg = get_arch(c["arch"]).make_config()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = sync_time(lambda: dlrm.dlrm_init(jr.PRNGKey(0, dev), cfg))
+    gen = torch.Generator(device=dev).manual_seed(LM["seeds"]["dlrm"])
+    out = dict(config=dict(dataclasses.asdict(cfg), dtype=str(cfg.dtype)), init_s=init_s,
+               tables_bytes=nbytes_of(params["tables"]), calls={})
+    with tf32_off(), torch.no_grad():
+        for shape in ("serve_p99", "serve_bulk"):
+            b = dlrm_inputs(cfg, c[shape], gen, dev)
+            first, med = median_call_ms(lambda: dlrm.dlrm_forward(params, b[0], b[1], cfg),
+                                        c["reps"])
+            out["calls"][shape] = dict(batch=c[shape], first_ms=first, ms=med,
+                                       rows_per_s=c[shape] / med * 1e3)
+        q = dlrm_inputs(cfg, 1, gen, dev)
+        cand = torch.randn((c["retrieval"], cfg.embed_dim), generator=gen, device=dev)
+        scores = dlrm.retrieval_score(params, q[0], q[1], cand, cfg)
+        assert scores.shape == (1, c["retrieval"]) and bool(torch.isfinite(scores).all())
+        first, med = median_call_ms(
+            lambda: dlrm.retrieval_score(params, q[0], q[1], cand, cfg), c["reps"])
+        out["calls"]["retrieval_cand"] = dict(candidates=c["retrieval"], first_ms=first, ms=med)
+        del cand, scores
+        b = dlrm_inputs(cfg, c["serve_p99"], gen, dev)
+        card = dlrm.dlrm_forward(params, b[0], b[1], cfg)
+        card_loss = dlrm.dlrm_loss(params, *b, cfg)
+        host_params = to_device(params, "cpu")
+        hb = [t.cpu() for t in b]
+        host = dlrm.dlrm_forward(host_params, hb[0], hb[1], cfg)
+        host_loss = dlrm.dlrm_loss(host_params, *hb, cfg)
+        del host_params
+        out["max_abs_err"] = dict(logits=close(card, host, "9d card vs cpu", **DLRM_TOL),
+                                  loss=close(card_loss, host_loss, "9d loss", **DLRM_TOL))
+    out["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    batch = dlrm_inputs(cfg, c["train"], gen, dev)
+    opt = adamw_init(params)
+    (params, opt, loss, gnorm), dt = sync_time(lambda: dlrm_step(params, opt, batch, cfg))
+    assert bool(torch.isfinite(loss)) and bool(torch.isfinite(gnorm))
+    out["train_batch"] = dict(batch=c["train"], ms=dt * 1e3, loss=float(loss),
+                              gnorm=float(gnorm), rows_per_s=c["train"] / dt,
+                              peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm(dev, workdir) -> dict:
+    """Phase 9: the LM family and DLRM (9a-9d), with the kernel counts set
+    to 0 just before and read just after: no path of theirs launches one
+    of the seven kernels."""
+    ops.reset_launches()    # ---- phase 9, counted from here
+    phase_lm_small(dev, workdir)
+    gemma = phase_lm_gemma(dev, workdir)
+    log("lm_gemma", **gemma)
+    qwen = phase_lm_qwen(dev)
+    log("lm_qwen", **qwen)
+    dl = phase_lm_dlrm(dev)
+    log("lm_dlrm", **dl)
+    launches = dict(ops.launches)   # ---- read just after
+    assert not any(launches.values()), f"phase 9 launched a kernel: {launches}"
+    log("reduced_lm", **LM_REDUCED)
+    return dict(launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2734,13 +3245,19 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     phase_quality(dev)
+    workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=_ROOT)
+    try:
+        lm = phase_lm(dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     next(r for r in kernels if r["name"] == "find_next_packed")["prefix_read"] = prefix_read
     # each kernel's launches on the main paths: order 1 (phase 3), the
     # maintainer (phase 3b), the serve path (phase 3c), and the order-2
     # corpus, unfused and fused batches (phase 4), and the paper's
     # comparison (phase 6: Wharf, II, tree; II and tree at order 2), the
-    # sharded engine's four ranks (phase 7b), and the launcher's
-    # downstream trainer (phase 8b)
+    # sharded engine's four ranks (phase 7b), the launcher's
+    # downstream trainer (phase 8b), and the LM family and DLRM (phase 9,
+    # none)
     for r in kernels:
         by_path = {"order1": full["launches"][r["name"]],
                    "maintainer": maint["launches"][r["name"]],
@@ -2748,7 +3265,8 @@ def main() -> int:
                    **{p: n2v["launches"][p][r["name"]] for p in n2v["launches"]},
                    **{p: paper["launches"][p][r["name"]] for p in paper["launches"]},
                    "sharded": sharded["launches"][r["name"]],
-                   "trainer": trainer["launches"][r["name"]]}
+                   "trainer": trainer["launches"][r["name"]],
+                   "lm": lm["launches"][r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         if r["name"] in OFF_MAIN_PATH:

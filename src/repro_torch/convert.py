@@ -11,8 +11,12 @@ do the same for the downstream maintainer (the SGNS tables and its
 optimizer counters), `baseline_from_numpy`/`baseline_to_numpy` for the II
 and Tree baselines (`core/baselines.py`), `wharf_config_from` for a
 reference `WharfStreamConfig`, and `shard_states_from_numpy`/
-`shard_states_to_numpy` for the sharded engine's states (`distr/`). No
-JAX is imported: the caller turns its arrays into numpy first.
+`shard_states_to_numpy` for the sharded engine's states (`distr/`),
+`lm_params_from_numpy`/`lm_params_to_numpy` for the transformer's
+parameter tree and `dlrm_params_from_numpy`/`dlrm_params_to_numpy` for
+DLRM's. No JAX is imported: the caller turns its arrays into numpy
+first (bf16 leaves as their uint16 bits, or numpy's `bfloat16` from
+ml_dtypes, which is viewed as such).
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from repro_torch.core.graph import StreamingGraph
 from repro_torch.core.store import WalkStore
 from repro_torch.core.update import EngineState, PendingBlocks
 from repro_torch.core.walkers import WalkModel
+from repro_torch.tree import leaf_paths, rebuild
 
 # the reference's kernel backends (FINDNEXT, intersect) -> the port's
 BACKEND_NAMES = {"auto": "auto", "pallas": "cuda", "interpret": "torch",
@@ -225,3 +230,64 @@ def shard_states_to_numpy(states: list) -> dict:
     out = {k: np.stack([x[k] for x in dicts]) for k in (*FIELDS, *SHARD_SCALARS)}
     out.update({k: dicts[0][k] for k in SCALARS if k not in SHARD_SCALARS})
     return out
+
+
+def _model_leaf(a, dtype: torch.dtype, shape, name: str, dev) -> torch.Tensor:
+    """One numpy leaf -> a tensor of `dtype`, bit for bit: bf16 from its
+    uint16 bits, float32 as is; the shape must be `shape`."""
+    a = np.asarray(a)
+    if tuple(a.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {a.shape}, expected {tuple(shape)}")
+    if dtype == torch.bfloat16:
+        if a.dtype.name == "bfloat16":
+            a = a.view(np.uint16)
+        if a.dtype != np.uint16:
+            raise TypeError(f"{name}: bf16 bits come as uint16, got {a.dtype}")
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(dev)
+    if a.dtype != np.float32 or dtype != torch.float32:
+        raise TypeError(f"{name}: {a.dtype} for a {dtype} leaf")
+    return torch.from_numpy(a.copy()).to(dev)
+
+
+def _model_tree_to_numpy(tree) -> dict:
+    """A parameter tree -> the same tree of numpy arrays (bf16 leaves as
+    their uint16 bits)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+    return rebuild(tree, {k: leaf(v) for k, v in leaf_paths(tree).items()})
+
+
+def lm_params_from_numpy(tree: dict, cfg, device=None) -> dict:
+    """The reference transformer's parameter tree as numpy ({"embed",
+    "final_ln", ["unembed"], "layers": {name: [L, ...]}}) -> the port's,
+    each leaf in the shape and dtype `cfg` gives it
+    (`transformer.param_specs`)."""
+    from repro_torch.models.transformer import param_specs
+    dev = resolve_device(device)
+    specs = leaf_paths(param_specs(cfg))
+    got = leaf_paths(tree)
+    if set(got) != set(specs):
+        raise ValueError(f"leaves {sorted(got)} != {sorted(specs)}")
+    return rebuild(tree, {k: _model_leaf(got[k], m.dtype, m.shape, k, dev)
+                          for k, m in specs.items()})
+
+
+def lm_params_to_numpy(params: dict) -> dict:
+    """The inverse of `lm_params_from_numpy`."""
+    return _model_tree_to_numpy(params)
+
+
+def dlrm_params_from_numpy(tree: dict, cfg, device=None) -> dict:
+    """The reference DLRM's parameter tree as numpy ({"tables", "bot":
+    [{"w", "b"}, ...], "top": [...]}) -> the port's, in `cfg.dtype`."""
+    dev = resolve_device(device)
+    return rebuild(tree, {k: _model_leaf(v, cfg.dtype, np.shape(v), k, dev)
+                          for k, v in leaf_paths(tree).items()})
+
+
+def dlrm_params_to_numpy(params: dict) -> dict:
+    """The inverse of `dlrm_params_from_numpy`."""
+    return _model_tree_to_numpy(params)

@@ -1,22 +1,25 @@
 """Training/streaming launcher; port of `repro/launch/train.py`.
 
+  python -m repro_torch.launch.train --arch gemma2-2b --smoke --steps 20 \\
+      [--batch 4 --seq 64] [--device cpu]
   python -m repro_torch.launch.train --arch wharf-stream --smoke --steps 10
   python -m repro_torch.launch.train --arch wharf-stream --smoke \\
       --mode downstream --steps 10 [--device cpu]
 
+LM archs run next-token training on synthetic token streams (`lm_trainer`:
+the transformer's loss and AdamW, the tokens drawn from the step's key);
 wharf-stream runs the paper's streaming walk-update loop (R-MAT edge
 batches); `--mode downstream` co-schedules the incremental SGNS embedding
 maintenance with the same stream (downstream/maintainer.py): each TrainLoop
 step is one edge batch -> walk update -> affected-only embedding retrain,
 and the checkpoint carries (EngineState, SGNS tables, opt) as one tree, so
-streaming and training resume together. Both modes go through the
-fault-tolerant TrainLoop (checkpoint/restart, straggler monitor). They run
-on the card unless `--device cpu` asks for the plain versions.
+streaming and training resume together. Every trainer goes through
+the fault-tolerant TrainLoop (checkpoint/restart, straggler monitor). They
+run on the card unless `--device cpu` asks for the plain versions.
 
 As in the reference, `--mode stream` checkpoints only the store's codes
 and restores no engine: a resumed stream run continues from a freshly
 built engine. Only `--mode downstream` resumes the streaming state.
-The LM family's trainer comes with the port's transformer.
 """
 from __future__ import annotations
 
@@ -25,19 +28,21 @@ import math
 import os
 import tempfile
 
+import torch
+
 from repro_torch import random as jr
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_arch
 from repro_torch.train.checkpoint import CheckpointManager
+from repro_torch.train.optim import AdamWConfig, adamw_init, adamw_update_
 from repro_torch.train.runtime import TrainLoop
+from repro_torch.tree import leaf_paths, rebuild
 
-# the reference's archs whose families the port does not register yet
-# (src/repro/configs/lm_archs.py, gnn_archs.py, recsys_archs.py)
+# the reference's archs whose family the port does not register yet
+# (src/repro/configs/gnn_archs.py)
 UNPORTED_ARCHS = {
-    "gemma2-2b": "lm", "llama4-maverick-400b-a17b": "lm",
-    "mistral-nemo-12b": "lm", "qwen1.5-110b": "lm", "qwen2-moe-a2.7b": "lm",
     "equiformer-v2": "gnn", "gat-cora": "gnn", "graphsage-reddit": "gnn",
-    "meshgraphnet": "gnn", "dlrm-rm2": "recsys",
+    "meshgraphnet": "gnn",
 }
 
 
@@ -50,6 +55,40 @@ def arch_family(arch: str) -> str:
         if arch in UNPORTED_ARCHS:
             return UNPORTED_ARCHS[arch]
         raise
+
+
+def lm_trainer(arch: str, smoke: bool, batch: int, seq: int, device=None):
+    """Next-token training of an LM arch -> (state, step_fn, batch_fn).
+    The carry is {"params", "opt"} (AdamW at lr 1e-3, updated in place:
+    `adamw_update_`, the reference's values without a second copy of the
+    parameters and moments); a step's tokens are `randint(key, (batch,
+    seq + 1), 0, vocab, int32)` of its key, and its metrics the loss and
+    the gradients' global norm."""
+    from repro_torch.models import transformer as tfm
+    dev = resolve_device(device)
+    cfg = get_arch(arch).make_config(smoke)
+    params = tfm.init_params(jr.PRNGKey(0, dev), cfg)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    state = {"params": params, "opt": adamw_init(params)}
+
+    def step_fn(state, tokens, key):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in leaf_paths(state["params"]).items()}
+        loss = tfm.lm_loss(rebuild(state["params"], leaves), tokens, cfg)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        grads = rebuild(state["params"], dict(zip(leaves, grads)))
+        del leaves
+        with torch.no_grad():
+            params, opt, gnorm = adamw_update_(grads, state["opt"],
+                                               state["params"], opt_cfg)
+        return {"params": params, "opt": opt}, {"loss": float(loss.detach()),
+                                                "gnorm": float(gnorm)}
+
+    def batch_fn(step, key):
+        return jr.randint(key, (batch, seq + 1), 0, cfg.vocab_size,
+                          dtype=torch.int32)
+
+    return state, step_fn, batch_fn
 
 
 def _start(cfg, batch_edges: int, dev):
@@ -134,6 +173,8 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=4, help="sequences a step (lm)")
+    ap.add_argument("--seq", type=int, default=64, help="tokens a sequence (lm)")
     ap.add_argument("--batch-edges", type=int, default=64)
     ap.add_argument("--mode", default="stream",
                     choices=("stream", "downstream"),
@@ -153,9 +194,8 @@ def main(argv=None):
     family = arch_family(args.arch)
     on_restore = None
     if family == "lm":
-        raise SystemExit(
-            f"--arch {args.arch}: the LM trainer and the transformer are not "
-            "ported yet (ROADMAP.md, queue 6)")
+        state, step_fn, batch_fn = lm_trainer(
+            args.arch, args.smoke, args.batch, args.seq, device=args.device)
     elif family == "wharf" and args.mode == "downstream":
         state, step_fn, batch_fn, on_restore = downstream_trainer(
             args.arch, args.smoke, args.batch_edges, args.dim,

@@ -52,13 +52,13 @@ def as_key(key, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def _iota_bits(key: torch.Tensor, n: int):
-    """threefry of the flat counters 0..n-1 under every key of `key`
-    ([..., 2]) -> two int64 tensors [..., n] (the partitionable layout:
-    counter hi word 0, lo word the index)."""
-    if n >= 1 << 32:
+def _iota_bits(key: torch.Tensor, n: int, start: int = 0):
+    """threefry of the flat counters start..start+n-1 under every key of
+    `key` ([..., 2]) -> two int64 tensors [..., n] (the partitionable
+    layout: counter hi word 0, lo word the index)."""
+    if start + n >= 1 << 32:
         raise ValueError("random_bits: more than 2^32 counters")
-    lo = torch.arange(n, dtype=torch.int64, device=key.device)
+    lo = torch.arange(start, start + n, dtype=torch.int64, device=key.device)
     return threefry2x32(key[..., 0:1], key[..., 1:2], torch.zeros_like(lo), lo)
 
 
@@ -173,12 +173,12 @@ def _randint32(key, shape, minval, maxval):
     return (out - (1 << 31)).to(torch.int32).reshape(full)
 
 
-def _unit_floats(key: torch.Tensor, shape, dtype) -> torch.Tensor:
+def _unit_floats(key: torch.Tensor, shape, dtype, start: int = 0) -> torch.Tensor:
     """The [0, 1) floats of `jax._src.random._uniform`: the mantissa of
     1.0 filled from the top random bits (32-bit: bits1 ^ bits2 of the
     counter's threefry; 64-bit: bits1 << 32 | bits2), less 1.0."""
     full = _draw_shape(key, shape)
-    b1, b2 = _iota_bits(key, math.prod(tuple(shape)))
+    b1, b2 = _iota_bits(key, math.prod(tuple(shape)), start)
     if dtype == torch.float32:
         bits = ((b1 ^ b2) >> 9) | 0x3F800000
         out = bits.to(torch.int32).view(torch.float32) - 1.0
@@ -191,7 +191,7 @@ def _unit_floats(key: torch.Tensor, shape, dtype) -> torch.Tensor:
 
 
 def uniform(key: torch.Tensor, shape=(), dtype=torch.float32, minval=0.0,
-            maxval=1.0) -> torch.Tensor:
+            maxval=1.0, start: int = 0) -> torch.Tensor:
     """`jax.random.uniform(key, shape, dtype, minval, maxval)` for each key
     of `key` ([..., 2]) -> [..., *shape]; `minval`/`maxval` are scalars or
     tensors that broadcast against `shape`.
@@ -199,8 +199,9 @@ def uniform(key: torch.Tensor, shape=(), dtype=torch.float32, minval=0.0,
     As `jax._src.random._uniform`: the [0, 1) floats scaled as
     `floats * (maxval - minval) + minval`, which XLA's CPU backend
     contracts into one FMA (`fma32` / `fma64`), then the max with minval.
-    On [0, 1) the scale changes no value and is skipped."""
-    floats = _unit_floats(key, shape, dtype)
+    On [0, 1) the scale changes no value and is skipped. `start` draws
+    the elements from flat index `start` on (see `normal`)."""
+    floats = _unit_floats(key, shape, dtype, start)
     if isinstance(minval, (int, float)) and isinstance(maxval, (int, float)) \
             and (minval, maxval) == (0, 1):
         return floats
@@ -423,16 +424,38 @@ def erfinv32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
-def normal(key: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
+def normal(key: torch.Tensor, shape=(), dtype=torch.float32,
+           start: int = 0) -> torch.Tensor:
     """`jax.random.normal(key, shape, float32)` for each key of `key`
     ([..., 2]): sqrt(2) * erf^-1(u), u uniform on [nextafter(-1, 0), 1)
     as `jax._src.random._normal_real` draws it (the mantissa bits of
     `uniform`, scaled by (hi - lo), which rounds to 2, and shifted by lo;
     the product is exact, so XLA's FMA there changes nothing). Bit for bit
-    with the reference (see `erfinv32`)."""
+    with the reference (see `erfinv32`).
+
+    An element's bits depend only on the key and its flat index (the
+    partitionable layout), so `normal(key, (m,), start=s)` is elements
+    s..s+m-1 of the flattened draw of any larger shape under that key."""
     if dtype != torch.float32:
         raise TypeError(f"normal: float32 only, got {dtype}")
     lo = float(np.nextafter(np.float32(-1), np.float32(0)))
-    u = uniform(key, shape, torch.float32, minval=lo, maxval=1.0)
+    u = uniform(key, shape, torch.float32, minval=lo, maxval=1.0, start=start)
     sqrt2 = torch.tensor(np.sqrt(2.0), dtype=torch.float32, device=key.device)
     return sqrt2 * erfinv32(u)
+
+
+def scaled_normal(key: torch.Tensor, shape, scale: float, dtype, out=None,
+                  slab: int = 1 << 24) -> torch.Tensor:
+    """`(jax.random.normal(key, shape, float32) * scale).astype(dtype)` for
+    one key [2], drawn `slab` elements of the flat index at a time into
+    `out` (a new tensor on the key's device if None): the f32 draw of a
+    full-width weight (590M elements for gemma2-2b's embedding) never
+    exists whole, and a slab's int64 and f64 temporaries peak near 2.4 GB
+    (~145 bytes an element). The same bits as one draw."""
+    if out is None:
+        out = torch.empty(tuple(shape), dtype=dtype, device=key.device)
+    flat = out.view(-1)
+    for s in range(0, flat.numel(), slab):
+        m = min(slab, flat.numel() - s)
+        flat[s:s + m] = (normal(key, (m,), start=s) * scale).to(dtype)
+    return out

@@ -16,8 +16,10 @@
     attribute-named leaf paths, so the maintainer's (EngineState, SGNS
     tables, opt) carry saves and restores as one step
 
-Host integers are leaves too, saved as 0-d int64 arrays and restored as
-ints. `HOST_COUNTERS` (the engine's `n_pending` and `epoch`, which the
+bf16 tensors are saved as the reference's are (numpy has no bf16: its
+ml_dtypes arrays land as two-byte void items, `'<V2'`, with "bfloat16" in
+the manifest) and restored bit for bit. Host integers are leaves too,
+saved as 0-d int64 arrays and restored as ints. `HOST_COUNTERS` (the engine's `n_pending` and `epoch`, which the
 reference keeps on the device) take the checkpoint's value; every other
 int sizes a tensor (a store's `length`, `n_walks`, ...) and must equal
 the template's, as a shape must.
@@ -38,6 +40,7 @@ from repro_torch.tree import leaf_paths, rebuild
 
 HOST_COUNTERS = frozenset({"n_pending", "epoch"})
 SCALARS = (bool, int, float)
+BF16_ITEM = np.dtype("V2")    # a bf16 leaf's bits on disk, as ml_dtypes saves them
 
 
 def _host_copy(leaf) -> np.ndarray:
@@ -45,7 +48,10 @@ def _host_copy(leaf) -> np.ndarray:
     `.numpy()` would: a later in-place write would reach the save)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
-        return (t.cpu() if t.is_cuda else t.clone()).numpy()
+        t = t.cpu() if t.is_cuda else t.clone()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(BF16_ITEM)
+        return t.numpy()
     if isinstance(leaf, int) and not isinstance(leaf, bool):
         return np.asarray(leaf, np.int64)
     return np.array(leaf, copy=True)
@@ -85,7 +91,7 @@ class CheckpointManager:
                 np.save(os.path.join(tmp, fname), arr)
                 manifest["leaves"][key] = {
                     "file": fname, "shape": list(arr.shape),
-                    "dtype": str(arr.dtype),
+                    "dtype": "bfloat16" if arr.dtype == BF16_ITEM else str(arr.dtype),
                 }
             with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
                 json.dump(manifest, f)
@@ -169,8 +175,9 @@ class CheckpointManager:
                     f"leaf {key}: ckpt {arr.shape} vs template {tpl.shape}")
             dev = one if one is not None else (
                 sh_leaves[key] if key in sh_leaves else tpl.device)
-            out[key] = torch.from_numpy(arr).to(device=torch.device(dev),
-                                                dtype=tpl.dtype)
+            t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+                 if arr.dtype == BF16_ITEM else torch.from_numpy(arr))
+            out[key] = t.to(device=torch.device(dev), dtype=tpl.dtype)
         return rebuild(template, out), step
 
 

@@ -49,8 +49,9 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
-def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
-    """One AdamW step with global-norm clipping -> (params, state, gnorm)."""
+def _adamw_math(grads, state: AdamWState, cfg: AdamWConfig):
+    """-> (gnorm, the next step count, the update of one leaf (g, m, v, p)
+    -> (p, m, v)), global-norm clipping included."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
@@ -66,8 +67,28 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
             + cfg.weight_decay * p.to(F32)
         return (p.to(F32) - cfg.lr * delta).to(p.dtype), m, v
 
+    return gnorm, step, upd
+
+
+def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
+    """One AdamW step with global-norm clipping -> (params, state, gnorm)."""
+    gnorm, step, upd = _adamw_math(grads, state, cfg)
     g, m, v, p = (leaf_paths(t) for t in (grads, state.m, state.v, params))
     out = {k: upd(g[k], m[k], v[k], p[k]) for k in g}
     new_p, new_m, new_v = (rebuild(grads, {k: o[i] for k, o in out.items()})
                            for i in range(3))
     return new_p, AdamWState(step=step, m=new_m, v=new_v), gnorm
+
+
+def adamw_update_(grads, state: AdamWState, params, cfg: AdamWConfig):
+    """`adamw_update` writing the new parameters and moments into the
+    tensors of `params` and `state` in place, one leaf at a time -> (params,
+    state, gnorm), the same values bit for bit. It holds one leaf's
+    temporaries where `adamw_update` holds a second copy of the parameters
+    and moments beside the first (26 GB at gemma2-2b's full width)."""
+    gnorm, step, upd = _adamw_math(grads, state, cfg)
+    g, m, v, p = (leaf_paths(t) for t in (grads, state.m, state.v, params))
+    for k in g:
+        for dst, src in zip((p[k], m[k], v[k]), upd(g[k], m[k], v[k], p[k])):
+            dst.copy_(src)
+    return params, AdamWState(step=step, m=state.m, v=state.v), gnorm

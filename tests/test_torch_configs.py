@@ -17,6 +17,10 @@ from repro_torch.core import packed_store
 from repro_torch.kernels import intersect, megakernel
 
 
+def _port_shapes(shapes: dict) -> dict:
+    return {k: _port_shape(v) for k, v in shapes.items()}
+
+
 def _port_shape(shape: dict) -> dict:
     out = dict(shape)
     if "megakernel" in out:
@@ -52,9 +56,17 @@ def test_shapes_and_registry_match_jax():
     arch, jarch = configs.get_arch("wharf-stream"), ref_configs.get_arch("wharf-stream")
     assert (arch.name, arch.family, arch.notes) == (jarch.name, jarch.family, jarch.notes)
     assert arch.shapes is wharf_stream.WHARF_SHAPES
-    assert configs.all_archs() == ("wharf-stream",)
+    # every registered family but GNN (not ported yet)
+    ported = tuple(a for a in ref_configs.all_archs()
+                   if ref_configs.get_arch(a).family != "gnn")
+    assert configs.all_archs() == ported
+    assert len(ported) == 7     # five LMs, dlrm-rm2, wharf-stream
     assert configs.all_cells() == tuple(c for c in ref_configs.all_cells()
-                                        if c[0] == "wharf-stream")
+                                        if c[0] in ported)
+    for name in ported:
+        arch, jarch = configs.get_arch(name), ref_configs.get_arch(name)
+        assert (arch.name, arch.family, arch.notes, arch.shapes) == \
+            (jarch.name, jarch.family, jarch.notes, _port_shapes(jarch.shapes)), name
     for name in ("LM_SHAPES", "GNN_SHAPES", "RECSYS_SHAPES"):
         assert getattr(configs, name) == getattr(ref_configs, name)
     with pytest.raises(KeyError):
@@ -136,3 +148,36 @@ def test_default_backend_reaches_store_reads(registries):
     packed_store.set_default_backend("cuda")
     with pytest.raises(ValueError, match="card"):
         store.find_next(v[:, 3], w, torch.full_like(w, 3))
+
+
+def _port_fields(cfg) -> dict:
+    """A model config's fields, nested configs included, with JAX dtypes
+    as their names (jnp.float32 -> "float32", torch.float32 -> "float32")."""
+    out = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if dataclasses.is_dataclass(v):
+            v = _port_fields(v)
+        elif f.name == "dtype":
+            v = str(v).replace("torch.", "").replace("<class 'jax.numpy.", "") \
+                .replace("'>", "")
+        out[f.name] = v
+    return out
+
+
+@pytest.mark.parametrize("name", ["mistral-nemo-12b", "qwen1.5-110b", "gemma2-2b",
+                                  "qwen2-moe-a2.7b", "llama4-maverick-400b-a17b",
+                                  "dlrm-rm2"])
+def test_model_configs_match_jax_field_for_field(name):
+    """Full and smoke configs of the LM archs and dlrm-rm2: every field
+    (the MoE config's too) equal, the dtype mapped; the derived sizes."""
+    for smoke in (False, True):
+        jcfg = ref_configs.get_arch(name).make_config(smoke)
+        cfg = configs.get_arch(name).make_config(smoke)
+        assert type(cfg).__name__ == type(jcfg).__name__
+        assert _port_fields(cfg) == _port_fields(jcfg), (name, smoke)
+        want = {"bfloat16", "float32"}
+        assert _port_fields(cfg)["dtype"] in want
+        for prop in ("hd", "d_interact"):
+            if hasattr(jcfg, prop):
+                assert getattr(cfg, prop) == getattr(jcfg, prop)

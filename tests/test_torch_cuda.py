@@ -4,7 +4,8 @@ tolerances); and the engine on the card against the engine on the CPU,
 order 1 and order 2 (both samplers, unfused and fused), the
 downstream maintainer, the stream generators, the II and tree
 baselines, and the sharded engine (4 gloo ranks on the card = the same
-ranks on the CPU = the single-host card engine; 1 rank on NCCL).
+ranks on the CPU = the single-host card engine; 1 rank on NCCL); the LM
+family and DLRM at their smoke configs (f32, TF32 off).
 
 Run on a machine with an NVIDIA sm_90a card:  pytest -m cuda tests/test_torch_*.py
 Without a card every test here skips (decided inside the fixture). This
@@ -881,3 +882,23 @@ def test_checkpoint_of_card_tensors(dev, tmp_path):
     assert out["n"] == 3 and torch.equal(out["b"]["c"], state["b"]["c"])
     out, _ = mgr.restore(state, shardings="cpu")
     assert not out["a"].is_cuda and not out["b"]["c"].is_cuda
+
+
+def test_lm_family_on_card_equals_cpu(dev, tmp_path):
+    """chip_smoke's phase 9a: every LM arch's smoke config in f32 with TF32
+    off, card against CPU (gemma2's sliding window and softcaps, the MoE
+    archs' routing exactly): init bit for bit; forward, loss, gradients,
+    prefill and decode within rtol 1e-4 / atol 1e-5; DLRM's smoke step;
+    the launcher's `lm_trainer` for 4 steps, tokens exact."""
+    import chip_smoke
+    chip_smoke.phase_lm_small(dev, str(tmp_path))
+
+
+def test_dlrm_step_on_card_equals_cpu(dev):
+    """DLRM's smoke config, card against CPU (TF32 off): init bit for bit;
+    forward, retrieval scores, loss, gradient norm and the parameters after
+    one AdamW step within rtol 1e-5 / atol 1e-6."""
+    import chip_smoke
+    with chip_smoke.tf32_off():
+        err = chip_smoke.dlrm_small(dev)
+    assert max(err.values()) <= 1e-4, err

@@ -123,9 +123,10 @@ def test_wharf_trainer_matches_jax_and_resumes_as_the_reference(tmp_path):
 
 
 def test_main_on_the_cpu(tmp_path, capsys):
-    """`main()` with `--device cpu`: both wharf modes run, print a line a
-    step and resume from their checkpoints; the LM family names the
-    queue it waits in; gnn and recsys exit as the reference does."""
+    """`main()` with `--device cpu`: both wharf modes and the LM route
+    (gemma2-2b smoke, `--batch 2 --seq 16`) run, print a line a step and
+    resume from their checkpoints; gnn and recsys exit as the reference
+    does."""
     args = ["--arch", ARCH, "--smoke", "--steps", "2", "--batch-edges", "16",
             "--device", "cpu", "--ckpt-every", "1"]
     tlaunch.main(args + ["--mode", "downstream", "--ckpt-dir", str(tmp_path / "d")])
@@ -134,8 +135,14 @@ def test_main_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert out.count("starting at step 0") == 2 and "starting at step 2" in out
     assert out.count("'affected_walks'") == 6 and out.count("'loss'") == 4
-    with pytest.raises(SystemExit, match="queue 6"):
-        tlaunch.main(["--arch", "gemma2-2b", "--device", "cpu"])
+    lm = ["--arch", "gemma2-2b", "--smoke", "--steps", "2", "--batch", "2", "--seq", "16",
+          "--device", "cpu", "--ckpt-every", "1", "--ckpt-dir", str(tmp_path / "lm")]
+    tlaunch.main(lm)
+    tlaunch.main(lm)
+    out = capsys.readouterr().out
+    assert out.count("starting at step 0") == 1 and "starting at step 2" in out
+    assert out.count("'gnorm'") == 4 and out.count("'loss'") == 4
+    assert "step 3:" in out
     with pytest.raises(SystemExit, match="family gnn"):
         tlaunch.main(["--arch", "gat-cora", "--device", "cpu"])
     with pytest.raises(SystemExit, match="family recsys"):
@@ -147,9 +154,8 @@ def test_main_on_the_cpu(tmp_path, capsys):
 def test_main_default_checkpoint_dir_and_refused_options(tmp_path, monkeypatch, capsys):
     """Without `--ckpt-dir` the checkpoints go to `repro_torch_ckpt` under
     the process's temporary directory (TMPDIR), and a second run resumes
-    from them. `--batch` and `--seq`, which only the reference's LM
-    trainer reads, are refused, and no abbreviation of `--batch-edges`
-    is taken."""
+    from them. `--batch` and `--seq` are taken (only the LM trainer reads
+    them), and no abbreviation of `--batch-edges` is."""
     import tempfile
     monkeypatch.setenv("TMPDIR", str(tmp_path))
     monkeypatch.setattr(tempfile, "tempdir", None)
@@ -160,7 +166,9 @@ def test_main_default_checkpoint_dir_and_refused_options(tmp_path, monkeypatch, 
     assert (tmp_path / "repro_torch_ckpt" / "step_1").is_dir()
     out = capsys.readouterr().out
     assert "starting at step 0" in out and "starting at step 2" in out
-    for extra in (["--batch", "8"], ["--seq", "64"], ["--batch-edge", "8"]):
+    tlaunch.main(args + ["--batch", "8", "--seq", "64"])
+    assert "starting at step 4" in capsys.readouterr().out
+    for extra in (["--batch-edge", "8"], ["--batch-e", "8"]):
         with pytest.raises(SystemExit):
             tlaunch.main(args + extra)
 
@@ -169,6 +177,7 @@ def test_trainers_need_a_device_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
     for make in (lambda: tlaunch.wharf_trainer(ARCH, True, 16),
-                 lambda: tlaunch.downstream_trainer(ARCH, True, 16, 8)):
+                 lambda: tlaunch.downstream_trainer(ARCH, True, 16, 8),
+                 lambda: tlaunch.lm_trainer("gemma2-2b", True, 2, 8)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

@@ -56,6 +56,32 @@ def test_checkpoint_roundtrip(tmp_path):
         ["MANIFEST.json", "b.npy", "opt__m.npy", "opt__step.npy", "w.npy"])
 
 
+def test_bf16_leaves_in_the_reference_format(tmp_path):
+    """bf16 leaves: the reference saves them through ml_dtypes as two-byte
+    void items with "bfloat16" in the manifest; the port writes the same
+    bits and manifest entry, restores its own save and the reference's
+    bit for bit."""
+    import json
+
+    import jax.numpy as jnp
+
+    from repro.train.checkpoint import CheckpointManager as RefManager
+    bits = np.random.default_rng(0).integers(0, 2**16, (5, 7), dtype=np.uint16)
+    bits[bits & 0x7F80 == 0x7F80] = 0          # no NaN or inf patterns
+    w = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+    RefManager(str(tmp_path / "ref")).save(0, {"w": jnp.asarray(bits).view(jnp.bfloat16)},
+                                           blocking=True)
+    CheckpointManager(str(tmp_path / "port")).save(0, {"w": w}, blocking=True)
+    for d in ("ref", "port"):
+        with open(tmp_path / d / "step_0" / "MANIFEST.json") as f:
+            assert json.load(f)["leaves"]["w"]["dtype"] == "bfloat16", d
+        arr = np.load(tmp_path / d / "step_0" / "w.npy")
+        assert arr.dtype.itemsize == 2 and np.array_equal(arr.view(np.uint16), bits), d
+        got, _ = CheckpointManager(str(tmp_path / d)).restore({"w": torch.zeros_like(w)})
+        assert got["w"].dtype == torch.bfloat16
+        assert torch.equal(got["w"].view(torch.int16), w.view(torch.int16)), d
+
+
 def test_checkpoint_atomicity_partial_save_invisible(tmp_path):
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(1, small_state(), blocking=True)
@@ -259,6 +285,32 @@ def test_train_loop_needs_a_device_without_a_card():
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TrainLoop(step_fn=None, batch_fn=None, ckpt=None)
+
+
+def test_adamw_in_place_equals_adamw():
+    """`adamw_update_` (the LM trainer's) writes into the given tensors and
+    equals `adamw_update` bit for bit over 3 steps, bf16 leaves included."""
+    from repro_torch.train import optim as topt
+    rng = np.random.default_rng(6)
+    p = {"a": torch.from_numpy(rng.normal(size=(7, 5)).astype(np.float32)),
+         "b": {"c": torch.from_numpy(rng.normal(size=13).astype(np.float32))
+               .to(torch.bfloat16)}}
+    cfg = topt.AdamWConfig(lr=1e-2)
+    ref_p, ref_s = tt.tree_map(torch.clone, p), topt.adamw_init(p)
+    got_p, got_s = tt.tree_map(torch.clone, p), topt.adamw_init(p)
+    held = tt.leaf_paths(got_p)
+    for i in range(3):
+        g = tt.tree_map(lambda x: torch.from_numpy(
+            rng.normal(size=tuple(x.shape)).astype(np.float32) * 2.0).to(x.dtype), p)
+        ref_p, ref_s, rn = topt.adamw_update(g, ref_s, ref_p, cfg)
+        got_p, got_s, gn = topt.adamw_update_(g, got_s, got_p, cfg)
+        assert torch.equal(rn, gn)
+    assert all(held[k] is v for k, v in tt.leaf_paths(got_p).items())
+    assert int(got_s.step) == 3
+    for a, b in ((got_p, ref_p), (got_s.m, ref_s.m), (got_s.v, ref_s.v)):
+        want = tt.leaf_paths(b)
+        for k, v in tt.leaf_paths(a).items():
+            assert v.dtype == want[k].dtype and torch.equal(v, want[k]), k
 
 
 # ------------------------------------------------- against the JAX package
