@@ -140,6 +140,24 @@ every phase passed):
      = CPU at depth 1 with the routing exact. 9d: dlrm-rm2 at full width:
      serve_p99, serve_bulk, retrieval_cand and one train_batch step, card
      = CPU at B = 512. The cuts are printed as `reduced_lm`.
+ 10. the GNN family (models/gnn.py, launch/steps.py's cell plans), with the
+     kernel counts set to 0 just before and read just after (its message
+     passing is torch gathers and index_add: none of the seven kernels).
+     10a: the four archs at their smoke configs in f32 (TF32 off), card
+     against CPU: init bit for bit, forward, `_gnn_loss` and gradients
+     within rtol 1e-4 / atol 1e-5; `sample_two_hop` ids and masks card =
+     CPU; the plans of tests/test_dryrun.py's registry test build. 10b:
+     every (arch, shape) cell of GNN_SHAPES at the full configs through
+     `build_cell`'s `train_step`, 3 steps on inputs drawn on the card (a
+     valid CSR for minibatch_lg), each step synced: the loss finite, the
+     gradient norm exactly 0 on the three minibatch cells whose loss reads
+     the step's params (the reference's), > 0 elsewhere; peak memory and
+     model FLOP/s beside the f32 peak. meshgraphnet and equiformer-v2 on
+     ogb_products are cut to fit (`reduced_gnn`). The `gnn` path of the
+     kernels line is `walk_based_neighborhood` over phase 3's merged store
+     (1,024 seeds, 10 walks, 2 hops), run after phase 5's order-1 kernels:
+     kernels 1 and 4 launched, 3 and 5-7 not; = the plain backend and = the
+     first 3 columns of the store's traverse.
 Phase 2 also runs a small maintainer on the card against the CPU and
 against a plain engine, and the order-1 stream with `WalkConfig(metrics=
 True)` on the card: its state equals the plain run's, its counters equal
@@ -165,7 +183,7 @@ _ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(_ROOT, "src"))
 
 from repro_torch import random as jr  # noqa: E402
-from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs import GNN_SHAPES, get_arch  # noqa: E402
 from repro_torch.configs.base import ArchSpec, register  # noqa: E402
 from repro_torch.configs.wharf_stream import WHARF_SHAPES, WharfStreamConfig  # noqa: E402
 from repro_torch import convert  # noqa: E402
@@ -189,8 +207,9 @@ from repro_torch.distr.sharded import (consolidate, local_shard_state,  # noqa: 
 from repro_torch.downstream import EmbeddingMaintainer, MaintainerConfig  # noqa: E402
 from repro_torch.kernels import _build, delta, intersect, megakernel, ops  # noqa: E402
 from repro_torch.kernels import range_search, sgns, szudzik  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch import train as launch  # noqa: E402
-from repro_torch.models import dlrm  # noqa: E402
+from repro_torch.models import dlrm, gnn, sampling  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.embeddings import (SGNSConfig, logistic_eval, sgns_init,  # noqa: E402
                                           train_epoch, window_pairs)
@@ -356,6 +375,46 @@ DLRM_TOL = dict(rtol=1e-5, atol=1e-6)
 # so other f32 sum orders and bf16 roundings in each of 26 layers. The
 # logits are ~N(0, 1) (embedding std 0.02 x sqrt(2,304)), capped at 30
 LM_BF16_TOL = dict(rtol=0.05, atol=0.25)
+
+# phase 10: the GNN family (src/repro/configs/gnn_archs.py:9-48) through
+# launch/steps.py's cell plans at the shapes of GNN_SHAPES
+# (src/repro/configs/base.py:16-25). 10a at the smoke configs, card = CPU;
+# 10b every (arch, shape) cell at the full config, `steps` train steps on
+# inputs drawn on the card from a seed, cut as GNN_REDUCED says. The `gnn`
+# path: walk_based_neighborhood (models/sampling.py) over phase 3's merged
+# store, GraphSAGE's two hops (phase_gnn_sampler)
+GNN_ARCHS = ("meshgraphnet", "equiformer-v2", "gat-cora", "graphsage-reddit")
+GNN = dict(steps=3, seed=1010,
+           small=dict(n=40, e=160, d_feat=8, csr_n=300, csr_e=2000, seeds=64,
+                      fanout=(15, 10)),
+           sampler=dict(seeds=1024, n_w=10, hops=2),
+           # (arch, shape) -> the divisor of n_nodes and n_edges (the mean
+           # degree kept): the cells whose saved activations exceed the card
+           cuts={("meshgraphnet", "ogb_products"): 36,
+                 ("equiformer-v2", "ogb_products"): 512})
+GNN_REDUCED = dict(
+    meshgraphnet_ogb_products=(
+        "n_nodes 2,449,029 -> 68,028 and n_edges 61,859,140 -> 1,718,309 (1/36, the mean "
+        "degree kept; padded to 68,096 and 1,718,784): 15 layers keep ~42 KB an edge for "
+        "the backward (72.7 GB peak at 1/36 of the card's 85.0 GB; 1/32 peaked at 81.7 GB "
+        "in a run of the cell alone and ran out of memory after the earlier phases, "
+        "with 3.0 GB of the allocator's cache in fragments); "
+        "the reference has no remat or edge chunking"),
+    equiformer_v2_ogb_products=(
+        "n_nodes 2,449,029 -> 4,783 and n_edges 61,859,140 -> 120,818 (1/512, the mean "
+        "degree kept; padded to 5,120 and 120,832): 12 layers keep ~0.6 MB an edge "
+        "([E, 29, 128] f32 three times a layer; 73.7 GB peak at 1/512, the largest "
+        "share measured on the card; 1/448 extrapolates to ~84.2 GB, over what 1/32 of "
+        "meshgraphnet could not get)"),
+    gat_cora_and_graphsage_reddit_ogb_products="none (peaks 80.0 and 41.0 GB)",
+    steps="3 train steps a cell",
+    minibatch_lg="none: the sampled star subgraph (169,984 nodes, 168,960 edges) of "
+                 "the full CSR (233,472 nodes, 114,616,320 edges)")
+# card against CPU in f32 (TF32 off): phase 9a's tolerance
+GNN_TOL = dict(rtol=1e-4, atol=1e-5)
+# the minibatch cells whose loss reads the step's params, not the
+# differentiated p (src/repro/launch/steps.py:356): gradient norm exactly 0
+GNN_ZERO_GRAD = ("meshgraphnet", "equiformer-v2", "gat-cora")
 
 KERNEL_META = {
     "szudzik_pair": ("src/repro_torch/kernels/csrc/szudzik.cu",
@@ -2811,14 +2870,6 @@ def synced_calls(module, name: str):
         setattr(module, name, fn)
 
 
-def value_and_grad(fn, params, *args):
-    """(loss, gradient tree) of fn(params, *args) through autograd."""
-    leaves = {k: v.detach().requires_grad_(True) for k, v in ttree.leaf_paths(params).items()}
-    loss = fn(ttree.rebuild(params, leaves), *args)
-    grads = torch.autograd.grad(loss, list(leaves.values()))
-    return loss.detach(), ttree.rebuild(params, dict(zip(leaves, grads)))
-
-
 def to_device(tree, d):
     return ttree.tree_map(lambda t: t.to(d), tree)
 
@@ -2859,8 +2910,8 @@ def lm_small_run(arch: str, d) -> dict:
     with moe_routing() as route:
         with torch.no_grad():
             out["logits"] = tfm.forward(params, toks[:, :-1], cfg)
-        out["loss"], out["grads"] = value_and_grad(
-            lambda p, t: tfm.lm_loss(p, t, cfg), params, toks)
+        out["loss"], out["grads"] = steps.value_and_grad(
+            lambda p: tfm.lm_loss(p, toks, cfg), params)
         out["last"], pc = tfm.prefill(params, toks[:, :8], cfg)
         cache = tfm.init_kv_cache(cfg, 2, 16, device=d)
         cache["k"][:, :, :8], cache["v"][:, :, :8] = pc["k"], pc["v"]
@@ -2934,7 +2985,7 @@ def dlrm_inputs(cfg, b: int, gen, d):
 def dlrm_step(params, opt, batch, cfg):
     """The train_batch step of launch/steps.py:471-479: `dlrm_loss`, its
     gradients, one AdamW update at `AdamWConfig()`."""
-    loss, grads = value_and_grad(lambda p, *a: dlrm.dlrm_loss(p, *a, cfg), params, *batch)
+    loss, grads = steps.value_and_grad(lambda p: dlrm.dlrm_loss(p, *batch, cfg), params)
     with torch.no_grad():
         params, opt, gnorm = adamw_update(grads, opt, params, AdamWConfig())
     return params, opt, loss, gnorm
@@ -3203,6 +3254,238 @@ def phase_lm(dev, workdir) -> dict:
     return dict(launches=launches)
 
 
+# --------------------------------------------------------------- phase 10
+
+
+def gnn_labels(arch, cfg, n: int, gen, dev):
+    """n labels drawn on dev: normal targets for the regression archs,
+    classes in range for the others."""
+    if steps._regression(arch):
+        return torch.randn((n, cfg.d_out), generator=gen, device=dev)
+    return torch.randint(0, cfg.n_classes, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+
+
+def gnn_batch(specs: dict, n: int, gen, dev) -> dict:
+    """A full-batch plan's batch drawn on dev to `specs`' shapes: edges
+    among n nodes (duplicates and self-loops as they fall), the rest
+    normal."""
+    return {k: (torch.randint(0, n, tuple(v.shape), generator=gen, device=dev,
+                              dtype=torch.int32)
+                if k in ("senders", "receivers")
+                else torch.randn(tuple(v.shape), generator=gen, device=dev))
+            for k, v in specs.items()}
+
+
+def gnn_small_run(arch: str, d) -> dict:
+    """One smoke arch on device d (f32): init, forward, `_gnn_loss` and its
+    gradients on a small graph drawn on the CPU to the plan's batch specs."""
+    c = GNN["small"]
+    cfg, _ = steps._gnn_init(arch, get_arch(arch).make_config(True), c["d_feat"])
+    params = gnn.INITS[arch](jr.PRNGKey(0, d), cfg)
+    gen = torch.Generator().manual_seed(GNN["seed"])
+    specs = steps._gnn_batch_specs(arch, c["n"], c["e"], c["d_feat"])
+    batch = {k: v.to(d) for k, v in gnn_batch(specs, c["n"], gen, "cpu").items()}
+    labels = gnn_labels(arch, cfg, c["n"], gen, "cpu").to(d)
+    with torch.no_grad():
+        out = steps._gnn_forward(arch, params, batch, cfg)
+    loss, grads = steps.value_and_grad(
+        lambda p: steps._gnn_loss(arch, p, batch, labels, cfg), params)
+    return dict(params=params, out=out, loss=loss, grads=grads)
+
+
+def phase_gnn_small(dev) -> dict:
+    """Phase 10a: the four GNN archs at their smoke configs in f32 (TF32
+    off), card against CPU: init bit for bit, forward, loss and gradients
+    within GNN_TOL; `sample_two_hop` on a small random CSR, ids and masks
+    card = CPU; the plans of tests/test_dryrun.py's registry test build."""
+    cpu = torch.device("cpu")
+    out = {}
+    with tf32_off():
+        for arch in GNN_ARCHS:
+            a, b = gnn_small_run(arch, dev), gnn_small_run(arch, cpu)
+            for k, v in ttree.leaf_paths(a["params"]).items():
+                assert torch.equal(v.cpu(), ttree.leaf_paths(b["params"])[k]), (arch, k)
+            err = {k: close(a[k], b[k], f"10a {arch} {k}", **GNN_TOL) for k in ("out", "loss")}
+            err["grads"] = trees_close(a["grads"], b["grads"], f"10a {arch} grads", **GNN_TOL)
+            out[arch] = err
+    c = GNN["small"]
+    rng = np.random.default_rng(GNN["seed"] + 1)
+    src, dst = (torch.from_numpy(rng.integers(0, c["csr_n"] - 20, c["csr_e"])) for _ in range(2))
+    seeds = torch.from_numpy(rng.integers(0, c["csr_n"], c["seeds"]))
+    hops = {}
+    for d in (cpu, dev):
+        g = StreamingGraph.from_edges(src.to(d), dst.to(d), c["csr_n"], 1 << 13, device=d)
+        hops[d.type] = sampling.sample_two_hop(jr.PRNGKey(GNN["seed"], d), g, seeds.to(d),
+                                               *c["fanout"])
+    for (x, mx), (y, my) in zip(hops[dev.type], hops["cpu"]):
+        assert torch.equal(x.cpu(), y) and torch.equal(mx.cpu(), my), "10a sample_two_hop"
+    dead = int((hops["cpu"][0][1] == 0).all(dim=1).sum())
+    for arch, shape in (("gat-cora", "molecule"), ("dlrm-rm2", "serve_p99"),
+                        ("graphsage-reddit", "full_graph_sm")):
+        plan = steps.build_cell(arch, shape, smoke=True)
+        assert plan.fn is not None and len(plan.args) >= 2, (arch, shape)
+    return dict(archs=out, sampler=dict(seeds=c["seeds"], fanout=c["fanout"],
+                                        seeds_of_degree_0=dead, card_equals_cpu=True))
+
+
+def gnn_cell(arch: str, shape: str):
+    """(plan, info, cfg) of one 10b cell: `build_cell`'s plan, on the shape
+    cut as GNN["cuts"] says; cfg is the plan's (the shape's input widths)."""
+    info = dict(GNN_SHAPES[shape])
+    div = GNN["cuts"].get((arch, shape))
+    if div is not None:
+        info.update(n_nodes=info["n_nodes"] // div, n_edges=info["n_edges"] // div)
+    plan = steps.build_cell(arch, shape, info=info)
+    cfg = get_arch(arch).make_config(False)
+    return plan, info, steps._gnn_init(arch, cfg, info.get("d_feat", 16))[0]
+
+
+def gnn_inputs(arch, plan, info, cfg, gen, dev) -> list:
+    """The plan's arguments after (params, opt), drawn on the card: a valid
+    CSR for the sampled plan (offsets monotone from 0 to e), edges among
+    the plan's nodes, labels in range, the rest normal."""
+    args = plan.args[2:]
+    if info["kind"] == "sampled":
+        feats, offsets, neighbors, seeds, labels = args[:5]
+        n, e = feats.shape[0], neighbors.shape[0]
+        cuts = torch.sort(torch.randint(0, e + 1, (n - 1,), generator=gen, device=dev)).values
+        off = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), cuts,
+                         torch.full((1,), e, dtype=torch.int64, device=dev)]).to(torch.int32)
+        return [torch.randn(tuple(feats.shape), generator=gen, device=dev), off,
+                torch.randint(0, n, (e,), generator=gen, device=dev, dtype=torch.int32),
+                torch.randint(0, n, tuple(seeds.shape), generator=gen, device=dev,
+                              dtype=torch.int32),
+                gnn_labels(arch, cfg, labels.shape[0], gen, dev)]
+    spec, labels = args
+    n = labels.shape[0]
+    return [gnn_batch(spec, n, gen, dev), gnn_labels(arch, cfg, n, gen, dev)]
+
+
+def mgn_input_scale(params, batch, cfg) -> float:
+    """MeshGraphNet sums messages over its 15 layers with no norm, so N(0, 1)
+    features give outputs ~1e9 at ogb_products' mean degree 25 and a
+    gradient norm that overflows f32 (AdamW's clip then zeroes the update).
+    At the init the forward is positively homogeneous in the features
+    (ReLU MLPs, zero biases), so features scaled by 1/rms of its output
+    give outputs of rms 1: the scale returned."""
+    with torch.no_grad():
+        out = steps._gnn_forward("meshgraphnet", params, batch, cfg)
+        rms = float(torch.sqrt(torch.mean(out.double() ** 2)))
+    del out
+    torch.cuda.empty_cache()
+    assert np.isfinite(rms) and rms > 0, rms
+    return 1.0 / rms
+
+
+def gnn_full_cell(arch: str, shape: str, dev) -> dict:
+    """One 10b cell: the plan's `train_step` for GNN["steps"] steps from
+    the bit-exact init, each synced; loss finite, the gradient norm exactly
+    0 on the three minibatch cells that train nothing, finite and > 0
+    elsewhere."""
+    plan, info, cfg = gnn_cell(arch, shape)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = sync_time(lambda: gnn.INITS[arch](jr.PRNGKey(0, dev), cfg))
+    want = {k: tuple(v.shape) for k, v in ttree.leaf_paths(plan.args[0]).items()}
+    assert {k: tuple(v.shape) for k, v in ttree.leaf_paths(params).items()} == want, (arch, shape)
+    opt = adamw_init(params)
+    gen = torch.Generator(device=dev).manual_seed(GNN["seed"])
+    inputs = gnn_inputs(arch, plan, info, cfg, gen, dev)
+    sampled = info["kind"] == "sampled"
+    scale = None
+    if arch == "meshgraphnet" and not sampled:
+        scale = mgn_input_scale(params, inputs[0], cfg)
+        for k in ("node_feat", "edge_feat"):
+            inputs[0][k] *= scale
+    key = jr.PRNGKey(GNN["seed"], dev)
+    step_ms, losses, gnorms = [], [], []
+    for i in range(GNN["steps"]):
+        extra = [jr.fold_in(key, i)] if sampled else []
+        (params, opt, loss, gnorm), dt = sync_time(
+            lambda: plan.fn(params, opt, *inputs, *extra))
+        step_ms.append(dt * 1e3)
+        losses.append(float(loss))
+        gnorms.append(float(gnorm))
+    zero = sampled and arch in GNN_ZERO_GRAD
+    assert all(np.isfinite(losses)), (arch, shape, losses)
+    assert all(np.isfinite(g) and ((g == 0.0) if zero else (g > 0)) for g in gnorms), (
+        arch, shape, gnorms)
+    best = min(step_ms) / 1e3
+    # model_flops counts forward and backward (x3); the zero-gradient cells
+    # run the forward alone
+    flops_run = plan.model_flops / 3.0 if zero else plan.model_flops
+    n, e = ((inputs[0].shape[0], inputs[2].shape[0]) if sampled
+            else (inputs[1].shape[0], inputs[0]["senders"].shape[0]))
+    res = dict(n_nodes=n, n_edges=e, cut=GNN["cuts"].get((arch, shape)), init_s=init_s,
+               input_scale=scale, step_ms=step_ms,
+               loss=losses, gnorm=gnorms, zero_gradient=zero,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               model_flops=plan.model_flops, flops_run=flops_run,
+               flops_run_per_s=flops_run / best,
+               share_of_f32_peak=flops_run / best / SCALAR_OPS_PER_S)
+    del params, opt, inputs, plan
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_gnn_full(dev) -> dict:
+    """Phase 10b: every (arch, shape) cell of the four GNN archs at the full
+    config (cut as GNN_REDUCED says) through the cell plans."""
+    cells = {}
+    for arch in GNN_ARCHS:
+        for shape in GNN_SHAPES:
+            cells[f"{arch}/{shape}"] = gnn_full_cell(arch, shape, dev)
+    return dict(steps=GNN["steps"], f32_peak_ops_per_s=SCALAR_OPS_PER_S,
+                tf32=torch.backends.cuda.matmul.allow_tf32, cells=cells)
+
+
+def phase_gnn(dev) -> dict:
+    """Phase 10: the GNN family (10a, 10b), with the kernel counts set to 0
+    just before and read just after: the models' message passing is torch
+    (gathers, index_add), no kernel of the port."""
+    ops.reset_launches()    # ---- phase 10, counted from here
+    small = phase_gnn_small(dev)
+    log("gnn_small", ok=True, **small)
+    full = phase_gnn_full(dev)
+    log("gnn_full", ok=True, **full)
+    launches = dict(ops.launches)   # ---- read just after
+    assert not any(launches.values()), f"phase 10 launched a kernel: {launches}"
+    log("reduced_gnn", **GNN_REDUCED)
+    return dict(launches=launches)
+
+
+def phase_gnn_sampler(dev, store, n_w: int, length: int) -> dict:
+    """The `gnn` path: `walk_based_neighborhood` over phase 3's merged store
+    at GraphSAGE's two hops for GNN["sampler"]["seeds"] seed vertices, its
+    kernel launches counted alone (kernels 1 and 4, FINDNEXT); = the plain
+    backend's, and = the first hops + 1 columns of `store.traverse` of the
+    same walks."""
+    c = GNN["sampler"]
+    gen = torch.Generator(device=dev).manual_seed(GNN["seed"] + 2)
+    seeds = torch.randint(0, store.n_vertices, (c["seeds"],), generator=gen, device=dev)
+    ops.reset_launches()    # ---- the gnn path, counted from here
+    paths, dt = sync_time(lambda: sampling.walk_based_neighborhood(
+        store, seeds, n_w, length, c["hops"]))
+    launches = dict(ops.launches)   # ---- read just after
+    plain, dt_plain = sync_time(lambda: sampling.walk_based_neighborhood(
+        store, seeds, n_w, length, c["hops"], backend="torch"))
+    assert torch.equal(paths, plain), "walk_based_neighborhood: kernel != plain"
+    w = (seeds[:, None] * n_w + torch.arange(n_w, device=dev)[None]).reshape(-1)
+    full = store.traverse(w, torch.repeat_interleave(seeds, n_w), length - 1)
+    assert torch.equal(paths.reshape(-1, c["hops"] + 1), full[:, :c["hops"] + 1]), \
+        "walk_based_neighborhood != the traverse's first columns"
+    assert torch.equal(paths[:, :, 0], seeds[:, None].expand(-1, n_w))
+    for k in ("szudzik_pair", "find_next_packed"):
+        assert launches[k] > 0, f"the gnn path did not launch {k}"
+    for k in ("delta_decode", "intersect_next", "intersect_csr", "fused_rewalk_step",
+              "sgns_step"):
+        assert launches[k] == 0, f"the gnn path launched {k}"
+    res = dict(seeds=c["seeds"], n_w=n_w, hops=c["hops"], walks=int(w.numel()),
+               ms=dt * 1e3, plain_ms=dt_plain * 1e3, launches=launches)
+    log("gnn_sampler", **res)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3217,6 +3500,8 @@ def main() -> int:
     full, tensors = phase_full(dev)
     kernels = phase_kernels(dev, tensors)
     log("kernels_order1")
+    gnn_path = phase_gnn_sampler(dev, tensors["store"], CONFIG["n_walks_per_vertex"],
+                                 CONFIG["length"])
     host_state = tensors.pop("host_state")
     del tensors
     maint, kept, mt = phase_maintainer(dev, host_state)
@@ -3250,14 +3535,16 @@ def main() -> int:
         lm = phase_lm(dev, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    gnn_full = phase_gnn(dev)
     next(r for r in kernels if r["name"] == "find_next_packed")["prefix_read"] = prefix_read
     # each kernel's launches on the main paths: order 1 (phase 3), the
     # maintainer (phase 3b), the serve path (phase 3c), and the order-2
     # corpus, unfused and fused batches (phase 4), and the paper's
     # comparison (phase 6: Wharf, II, tree; II and tree at order 2), the
     # sharded engine's four ranks (phase 7b), the launcher's
-    # downstream trainer (phase 8b), and the LM family and DLRM (phase 9,
-    # none)
+    # downstream trainer (phase 8b), the LM family and DLRM (phase 9,
+    # none), and the GNN family: the walk-based sampler over phase 3's
+    # store and phase 10 (none)
     for r in kernels:
         by_path = {"order1": full["launches"][r["name"]],
                    "maintainer": maint["launches"][r["name"]],
@@ -3266,7 +3553,8 @@ def main() -> int:
                    **{p: paper["launches"][p][r["name"]] for p in paper["launches"]},
                    "sharded": sharded["launches"][r["name"]],
                    "trainer": trainer["launches"][r["name"]],
-                   "lm": lm["launches"][r["name"]]}
+                   "lm": lm["launches"][r["name"]],
+                   "gnn": gnn_path["launches"][r["name"]] + gnn_full["launches"][r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         if r["name"] in OFF_MAIN_PATH:

@@ -13,8 +13,10 @@ and Tree baselines (`core/baselines.py`), `wharf_config_from` for a
 reference `WharfStreamConfig`, and `shard_states_from_numpy`/
 `shard_states_to_numpy` for the sharded engine's states (`distr/`),
 `lm_params_from_numpy`/`lm_params_to_numpy` for the transformer's
-parameter tree and `dlrm_params_from_numpy`/`dlrm_params_to_numpy` for
-DLRM's. No JAX is imported: the caller turns its arrays into numpy
+parameter tree, `dlrm_params_from_numpy`/`dlrm_params_to_numpy` for
+DLRM's and `gnn_params_from_numpy`/`gnn_params_to_numpy` for the GNN
+family's (nested lists of dicts: MGN's `blocks`, eqv2's `layers` and
+their `so2` lists). No JAX is imported: the caller turns its arrays into numpy
 first (bf16 leaves as their uint16 bits, or numpy's `bfloat16` from
 ml_dtypes, which is viewed as such).
 """
@@ -290,4 +292,23 @@ def dlrm_params_from_numpy(tree: dict, cfg, device=None) -> dict:
 
 def dlrm_params_to_numpy(params: dict) -> dict:
     """The inverse of `dlrm_params_from_numpy`."""
+    return _model_tree_to_numpy(params)
+
+
+def gnn_params_from_numpy(tree, arch: str, cfg, device=None):
+    """The reference GNN's parameter tree of `arch` as numpy (dicts and
+    lists as the reference's init builds them) -> the port's, each leaf in
+    the shape and dtype `cfg` gives it (`gnn.param_specs`)."""
+    from repro_torch.models.gnn import param_specs
+    dev = resolve_device(device)
+    specs = leaf_paths(param_specs(arch, cfg))
+    got = leaf_paths(tree)
+    if set(got) != set(specs):
+        raise ValueError(f"leaves {sorted(got)} != {sorted(specs)}")
+    return rebuild(tree, {k: _model_leaf(got[k], m.dtype, m.shape, k, dev)
+                          for k, m in specs.items()})
+
+
+def gnn_params_to_numpy(params) -> dict:
+    """The inverse of `gnn_params_from_numpy`."""
     return _model_tree_to_numpy(params)

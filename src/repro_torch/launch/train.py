@@ -38,25 +38,6 @@ from repro_torch.train.optim import AdamWConfig, adamw_init, adamw_update_
 from repro_torch.train.runtime import TrainLoop
 from repro_torch.tree import leaf_paths, rebuild
 
-# the reference's archs whose family the port does not register yet
-# (src/repro/configs/gnn_archs.py)
-UNPORTED_ARCHS = {
-    "equiformer-v2": "gnn", "gat-cora": "gnn", "graphsage-reddit": "gnn",
-    "meshgraphnet": "gnn",
-}
-
-
-def arch_family(arch: str) -> str:
-    """The family of a registered arch, or of one the port does not
-    register yet."""
-    try:
-        return get_arch(arch).family
-    except KeyError:
-        if arch in UNPORTED_ARCHS:
-            return UNPORTED_ARCHS[arch]
-        raise
-
-
 def lm_trainer(arch: str, smoke: bool, batch: int, seq: int, device=None):
     """Next-token training of an LM arch -> (state, step_fn, batch_fn).
     The carry is {"params", "opt"} (AdamW at lr 1e-3, updated in place:
@@ -191,7 +172,7 @@ def main(argv=None):
                     help="cuda (the kernels) or cpu (their plain versions)")
     args = ap.parse_args(argv)
 
-    family = arch_family(args.arch)
+    family = get_arch(args.arch).family
     on_restore = None
     if family == "lm":
         state, step_fn, batch_fn = lm_trainer(
@@ -204,7 +185,7 @@ def main(argv=None):
         state, step_fn, batch_fn = wharf_trainer(
             args.arch, args.smoke, args.batch_edges, device=args.device)
     else:
-        raise SystemExit(f"use the examples/ scripts for family {family}")
+        raise SystemExit(f"use examples/ drivers for family {family}")
 
     loop = TrainLoop(step_fn=step_fn, batch_fn=batch_fn,
                      ckpt=CheckpointManager(args.ckpt_dir),

@@ -64,7 +64,10 @@ def _iota_bits(key: torch.Tensor, n: int, start: int = 0):
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """`jax.random.split(key, num)` for each key of `key` ([..., 2]) ->
-    int64 [..., num, 2]."""
+    int64 [..., num, 2]. A key on the meta device gives meta keys."""
+    if key.is_meta:
+        return torch.empty(tuple(key.shape[:-1]) + (num, 2), dtype=torch.int64,
+                           device="meta")
     b0, b1 = _iota_bits(key, num)
     return torch.stack([b0, b1], dim=-1)
 
@@ -435,9 +438,13 @@ def normal(key: torch.Tensor, shape=(), dtype=torch.float32,
 
     An element's bits depend only on the key and its flat index (the
     partitionable layout), so `normal(key, (m,), start=s)` is elements
-    s..s+m-1 of the flattened draw of any larger shape under that key."""
+    s..s+m-1 of the flattened draw of any larger shape under that key.
+    A key on the meta device gives the shape without drawing (a parameter
+    tree's shapes at full width)."""
     if dtype != torch.float32:
         raise TypeError(f"normal: float32 only, got {dtype}")
+    if key.is_meta:
+        return torch.empty(_draw_shape(key, shape), dtype=dtype, device="meta")
     lo = float(np.nextafter(np.float32(-1), np.float32(0)))
     u = uniform(key, shape, torch.float32, minval=lo, maxval=1.0, start=start)
     sqrt2 = torch.tensor(np.sqrt(2.0), dtype=torch.float32, device=key.device)
@@ -454,6 +461,8 @@ def scaled_normal(key: torch.Tensor, shape, scale: float, dtype, out=None,
     (~145 bytes an element). The same bits as one draw."""
     if out is None:
         out = torch.empty(tuple(shape), dtype=dtype, device=key.device)
+    if out.is_meta:
+        return out
     flat = out.view(-1)
     for s in range(0, flat.numel(), slab):
         m = min(slab, flat.numel() - s)

@@ -56,13 +56,11 @@ def test_shapes_and_registry_match_jax():
     arch, jarch = configs.get_arch("wharf-stream"), ref_configs.get_arch("wharf-stream")
     assert (arch.name, arch.family, arch.notes) == (jarch.name, jarch.family, jarch.notes)
     assert arch.shapes is wharf_stream.WHARF_SHAPES
-    # every registered family but GNN (not ported yet)
-    ported = tuple(a for a in ref_configs.all_archs()
-                   if ref_configs.get_arch(a).family != "gnn")
+    # the reference's whole registry: every family is ported
+    ported = ref_configs.all_archs()
     assert configs.all_archs() == ported
-    assert len(ported) == 7     # five LMs, dlrm-rm2, wharf-stream
-    assert configs.all_cells() == tuple(c for c in ref_configs.all_cells()
-                                        if c[0] in ported)
+    assert len(ported) == 11    # five LMs, four GNNs, dlrm-rm2, wharf-stream
+    assert configs.all_cells() == ref_configs.all_cells()
     for name in ported:
         arch, jarch = configs.get_arch(name), ref_configs.get_arch(name)
         assert (arch.name, arch.family, arch.notes, arch.shapes) == \

@@ -5,7 +5,8 @@ order 1 and order 2 (both samplers, unfused and fused), the
 downstream maintainer, the stream generators, the II and tree
 baselines, and the sharded engine (4 gloo ranks on the card = the same
 ranks on the CPU = the single-host card engine; 1 rank on NCCL); the LM
-family and DLRM at their smoke configs (f32, TF32 off).
+family, DLRM and the GNN family at their smoke configs (f32, TF32 off),
+and the GNN samplers.
 
 Run on a machine with an NVIDIA sm_90a card:  pytest -m cuda tests/test_torch_*.py
 Without a card every test here skips (decided inside the fixture). This
@@ -902,3 +903,52 @@ def test_dlrm_step_on_card_equals_cpu(dev):
     with chip_smoke.tf32_off():
         err = chip_smoke.dlrm_small(dev)
     assert max(err.values()) <= 1e-4, err
+
+
+@pytest.mark.parametrize("arch", ["meshgraphnet", "equiformer-v2", "gat-cora",
+                                  "graphsage-reddit"])
+def test_gnn_smoke_on_card_equals_cpu(dev, arch):
+    """chip_smoke's phase 10a for one GNN arch at its smoke config with a
+    plan's input widths (f32, TF32 off): init bit for bit; forward, `_gnn_loss` and its gradients
+    within rtol 1e-4 / atol 1e-5 (`index_add` on the card adds with
+    atomics, in another order)."""
+    import chip_smoke
+    from repro_torch import tree
+    with chip_smoke.tf32_off():
+        card, host = chip_smoke.gnn_small_run(arch, dev), chip_smoke.gnn_small_run(arch, "cpu")
+    want = tree.leaf_paths(host["params"])
+    for k, v in tree.leaf_paths(card["params"]).items():
+        assert torch.equal(v.cpu(), want[k]), k
+    for k in ("out", "loss"):
+        chip_smoke.close(card[k], host[k], k, **chip_smoke.GNN_TOL)
+    chip_smoke.trees_close(card["grads"], host["grads"], "grads", **chip_smoke.GNN_TOL)
+
+
+def test_gnn_samplers_on_card_equal_cpu(dev):
+    """`sample_fanout` and `sample_two_hop` (a graph with vertices of degree
+    0) give the card's ids and masks equal to the CPU's; and
+    `walk_based_neighborhood` through the CUDA FINDNEXT on the card = the
+    plain backend on the CPU, with a pending block live."""
+    from repro_torch.models import sampling
+    rng = np.random.default_rng(4)
+    n = 1 << 10
+    src, dst = (torch.from_numpy(rng.integers(0, n - 50, 8000)) for _ in range(2))
+    seeds = torch.from_numpy(rng.integers(0, n, 256))
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        g = StreamingGraph.from_edges(src.to(d), dst.to(d), n, 1 << 15, device=d)
+        key = jr.PRNGKey(3, d)
+        cfg = WalkConfig(n_walks_per_vertex=4, length=12)
+        eng = WalkEngine(graph=g, store=generate_corpus(jr.PRNGKey(0, d), g, cfg), cfg=cfg,
+                         rewalk_capacity=n * 4, max_pending=4)
+        eng.run_stream(jr.PRNGKey(1, d), src[None, :100].to(d), dst[None, :100].to(d),
+                       src[None, 200:220].to(d), dst[None, 200:220].to(d))
+        assert eng.n_pending == 1
+        out[d.type] = (sampling.sample_fanout(key, g, seeds.to(d), 25),
+                       sampling.sample_two_hop(key, g, seeds.to(d), 15, 10),
+                       sampling.walk_based_neighborhood(eng.overlay(), seeds.to(d), 4, 12, 2))
+    from repro_torch.tree import tree_leaves
+    want, got = tree_leaves(out["cpu"]), tree_leaves(out["cuda"])
+    assert len(want) == len(got) == 7
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)

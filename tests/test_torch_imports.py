@@ -79,7 +79,11 @@ def test_every_module_imports_without_a_card():
                                     "repro_torch.models.transformer",
                                     "repro_torch.models.dlrm",
                                     "repro_torch.configs.lm_archs",
-                                    "repro_torch.configs.recsys_archs"])
+                                    "repro_torch.configs.recsys_archs",
+                                    "repro_torch.models.gnn",
+                                    "repro_torch.models.sampling",
+                                    "repro_torch.configs.gnn_archs",
+                                    "repro_torch.launch.steps"])
 def test_each_module_imports_first_in_a_fresh_process(module):
     """The core and the kernel wrappers import each other; any one of them
     imported first must still work, and pull in neither JAX nor the JAX
@@ -126,6 +130,8 @@ def test_entry_points_raise_without_a_card():
         launch.lm_trainer("gemma2-2b", True, 2, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.dlrm_params_from_numpy({"tables": [[[0.0]]]}, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.gnn_params_from_numpy({"layers": []}, "gat-cora", None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         embeddings.logistic_eval([[1.0, 0.0], [0.0, 1.0]], [0, 1])
 
