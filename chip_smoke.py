@@ -158,6 +158,25 @@ every phase passed):
      (1,024 seeds, 10 walks, 2 hops), run after phase 5's order-1 kernels:
      kernels 1 and 4 launched, 3 and 5-7 not; = the plain backend and = the
      first 3 columns of the store's traverse.
+ 11. the cell plans and the dry-run tools (launch/steps.py's wharf plans,
+     launch/op_analysis.py, dryrun.py, profile_cell.py), counted as one
+     path. 11a: the 13 wharf-stream plans at the smoke config on the card
+     and on the CPU from the same inputs (64 vertices, mean degree 10),
+     every output leaf bit for bit but the serve cells' f32 top-k scores
+     (within 1e-5, as phase 3c's; their ids exact) (the sharded cell on a one-rank
+     NCCL group, gloo on the CPU; the fused-step cell "cuda" on the card,
+     "torch" on the CPU); each kernel's calls counted by op_analysis on
+     the card = its plain twin's calls on the CPU = the launch counts;
+     kernels 1-6 launched. 11b: `dryrun.run_cell` over the 40 LM, GNN and
+     recsys cells at their full configs on meta (the dry-run CLI in a
+     process of its own, beside 11a), and stream_10k_pipelined
+     (2 batches) and serve_batched_q256 at CONFIG's cut on the card: counted FLOPs
+     and bytes, the ratio to `model_flops`, the roofline terms against
+     the H100 constants (launch/mesh.py) and the dominant one, peak
+     memory; a wharf record's kernel calls = its launches. 11c:
+     `profile_cell` over stream_10k_pipelined (1 batch) at CONFIG's cut: the static
+     table and the top device ops by device time, the kernels named.
+     The cuts are printed as `reduced_plans`.
 Phase 2 also runs a small maintainer on the card against the CPU and
 against a plain engine, and the order-1 stream with `WalkConfig(metrics=
 True)` on the card: its state equals the plain run's, its counters equal
@@ -183,7 +202,7 @@ _ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(_ROOT, "src"))
 
 from repro_torch import random as jr  # noqa: E402
-from repro_torch.configs import GNN_SHAPES, get_arch  # noqa: E402
+from repro_torch.configs import GNN_SHAPES, all_cells, get_arch  # noqa: E402
 from repro_torch.configs.base import ArchSpec, register  # noqa: E402
 from repro_torch.configs.wharf_stream import WHARF_SHAPES, WharfStreamConfig  # noqa: E402
 from repro_torch import convert  # noqa: E402
@@ -207,7 +226,8 @@ from repro_torch.distr.sharded import (consolidate, local_shard_state,  # noqa: 
 from repro_torch.downstream import EmbeddingMaintainer, MaintainerConfig  # noqa: E402
 from repro_torch.kernels import _build, delta, intersect, megakernel, ops  # noqa: E402
 from repro_torch.kernels import range_search, sgns, szudzik  # noqa: E402
-from repro_torch.launch import steps  # noqa: E402
+from repro_torch.launch import dryrun, op_analysis, profile_cell, steps  # noqa: E402
+from repro_torch.launch import mesh as card_mesh  # noqa: E402
 from repro_torch.launch import train as launch  # noqa: E402
 from repro_torch.models import dlrm, gnn, sampling  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -221,8 +241,8 @@ from repro_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.train.optim import AdamWConfig, adamw_init, adamw_update  # noqa: E402
 from repro_torch.train.runtime import TrainLoop  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
-SCALAR_OPS_PER_S = 67e12      # H100 float32 outside the tensor cores
+HBM_BYTES_PER_S = card_mesh.HBM_BW           # H100 SXM (NVIDIA data sheet)
+SCALAR_OPS_PER_S = card_mesh.PEAK_FLOPS_F32   # H100 float32 outside the tensor cores
 FLUSH_BYTES = 256 << 20       # a write this large evicts the H100's 50 MB L2
 COLD_REPS = 30
 
@@ -415,6 +435,24 @@ GNN_TOL = dict(rtol=1e-4, atol=1e-5)
 # the minibatch cells whose loss reads the step's params, not the
 # differentiated p (src/repro/launch/steps.py:356): gradient norm exactly 0
 GNN_ZERO_GRAD = ("meshgraphnet", "equiformer-v2", "gat-cora")
+
+# phase 11: the wharf family's cell plans (launch/steps.py) at the smoke
+# config, card against CPU (11a); the dry-run (launch/dryrun.py) over the
+# 40 LM, GNN and recsys cells at their full configs on meta and two wharf
+# cells at CONFIG's cut (11b); the profile of the reference cell (11c)
+PLANS = dict(seed=2222, mean_degree=10, dry_wharf=("stream_10k_pipelined",
+                                                   "serve_batched_q256"),
+             dry_batches=2, profile="stream_10k_pipelined", profile_batches=1, top=12)
+PLANS_REDUCED = dict(REDUCED, wharf_config=(
+    "the full wharf-stream config at CONFIG's cut (2^18 vertices, edge capacity 2^25, "
+    "rewalk_capacity = n_walks, max_pending 4), an er graph of mean degree 100"),
+    smoke_graph="11a: 64 vertices, mean degree 10 (the smoke config's edge capacity "
+                "of 4,096 holds every pair)",
+    n_batches="stream_10k_pipelined 8 -> 2 batches in 11b, 1 in 11c (the run's time "
+              "limit: 8 batches took 25.6 s to count in 11b and 179 s to count, run "
+              "and trace in 11c)")
+PLAN_KERNELS = ("szudzik_pair", "szudzik_unpair", "delta_decode", "find_next_packed",
+                "intersect_csr", "fused_rewalk_step")
 
 KERNEL_META = {
     "szudzik_pair": ("src/repro_torch/kernels/csrc/szudzik.cu",
@@ -3486,6 +3524,193 @@ def phase_gnn_sampler(dev, store, n_w: int, length: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 11
+
+
+# the serve plans' top-k scores (output 5): an f32 product whose sums the
+# card takes in another order; phase 3c's tolerance, the ids exact
+PLAN_SCORE_ATOL = 1e-5
+
+
+def plan_outputs_equal(got, want, what: str, close=()) -> float:
+    """Every leaf of a plan's card output = the CPU's, bit for bit, but
+    the leaves `close`, within PLAN_SCORE_ATOL; -> their max abs error."""
+    g, w = ttree.leaf_paths(got), ttree.leaf_paths(want)
+    assert g.keys() == w.keys(), (what, sorted(g.keys() ^ w.keys()))
+    err = 0.0
+    for k, v in w.items():
+        if k in close:
+            err = max(err, float((g[k].cpu() - v).abs().max()))
+            assert err <= PLAN_SCORE_ATOL, (what, k, err)
+        else:
+            assert torch.equal(g[k].cpu(), v), f"{what}: {k} card != CPU"
+    return err
+
+
+def run_plan_counted(plan, args, d) -> tuple:
+    """`plan.fn` on `args` under op_analysis (a one-rank group for the
+    sharded cell) -> (outputs, Totals)."""
+    with torch.no_grad(), dryrun.one_rank_group(d):
+        return op_analysis.counted_run(plan, args)[:2]
+
+
+def phase_wharf_plans(dev) -> dict:
+    """11a: the 13 wharf plans at the smoke config on the card and on the
+    CPU from the same inputs (drawn on the CPU, copied): every output leaf
+    bit for bit (the serve cells' f32 scores within PLAN_SCORE_ATOL); each
+    kernel's calls counted by op_analysis on the card = its plain twin's
+    calls on the CPU = the card's launch counts; kernels 1-6 launched. The fused-step cell runs "cuda" on the card and "torch"
+    (the same math) on the CPU."""
+    cpu = torch.device("cpu")
+    spec = get_arch("wharf-stream")
+    cfg = spec.make_config(True)
+    saved = megakernel.default_backend_request()
+    cells, total = {}, dict.fromkeys(ops.KERNELS, 0)
+    ops.reset_launches()    # ---- the plans' path, counted from here
+    try:
+        for shape, info in spec.shapes.items():
+            plan = steps.build_cell("wharf-stream", shape, smoke=True)
+            args = dryrun.wharf_inputs(plan, cfg, PLANS["seed"], cpu, PLANS["mean_degree"])
+            card_args = ttree.tree_map(lambda t: t.to(dev), args)
+            before = dict(ops.launches)
+            (got, tot), dt = sync_time(lambda: run_plan_counted(plan, card_args, dev))
+            launched = {k: ops.launches[k] - before[k] for k in ops.KERNELS}
+            megakernel.set_default_backend(saved)
+            host_info = dict(info, megakernel="torch") if info.get("megakernel") else info
+            host_plan = steps.build_cell("wharf-stream", shape, smoke=True, info=host_info)
+            want, host_tot = run_plan_counted(host_plan, args, cpu)
+            megakernel.set_default_backend(saved)
+            close = ("5",) if plan.step_name == "walk_serve_step" else ()
+            err = plan_outputs_equal(got, want, shape, close)
+            calls = {k: int(v) for k, v in tot.kernel_calls.items()}
+            assert calls == {k: int(v) for k, v in host_tot.kernel_calls.items()}, (
+                shape, calls, host_tot.kernel_calls)
+            assert calls == launched, (shape, calls, launched)
+            for k in ops.KERNELS:
+                total[k] += calls[k]
+            cells[shape] = dict(ms=dt * 1e3, calls={k: v for k, v in calls.items() if v})
+            if close:
+                cells[shape]["score_max_abs_err"] = err
+    finally:
+        megakernel.set_default_backend(saved)
+    launches = dict(ops.launches)   # ---- read just after
+    assert launches == total, (launches, total)
+    for k in PLAN_KERNELS:
+        assert launches[k] > 0, f"the wharf plans did not launch {k}"
+    return dict(cells=cells, launches=launches)
+
+
+def dry_record(rec: dict) -> dict:
+    """The dry-run record's numbers for the phase line."""
+    keep = ("flops_per_card", "bytes_per_card", "collective_bytes_per_card", "model_flops",
+            "flops_ratio_model_over_count", "roofline", "bottleneck", "count_s", "memory")
+    out = {k: rec[k] for k in keep}
+    out["kernel_calls"] = {k: v for k, v in rec["kernel_calls"].items() if v}
+    return out
+
+
+def start_meta_dryrun(workdir: str):
+    """The dry-run CLI over the 40 meta cells in a process of its own,
+    beside 11a (it needs no card) -> (process, its output file, its log)."""
+    out = os.path.join(workdir, "dryrun_meta.json")
+    log_path = os.path.join(workdir, "dryrun_meta.log")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(_ROOT, "src"), os.environ.get("PYTHONPATH")) if p))
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun",
+                                 "--out", out], env=env, stdout=f, stderr=subprocess.STDOUT)
+    return proc, out, log_path
+
+
+def phase_dryrun(dev, meta) -> dict:
+    """11b: the dry-run's 40 LM, GNN and recsys cells at their full configs
+    on meta (`meta`: the CLI's process, started before 11a), and
+    PLANS["dry_wharf"] at CONFIG's cut on the card: every record's counts
+    finite and > 0 (bytes; FLOPs on the meta cells) and its terms; the
+    wharf records' kernel calls = the card's launches in the counted run."""
+    cfg = dryrun.wharf_config(18, max_pending=CONFIG["max_pending"])
+    assert (cfg.n_vertices, cfg.edge_capacity) == (CONFIG["n_vertices"], CONFIG["edge_capacity"])
+    cells = {}
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    for shape in PLANS["dry_wharf"]:
+        info = dict(WHARF_SHAPES[shape])
+        if "n_batches" in info:
+            info["n_batches"] = PLANS["dry_batches"]
+        rec = dryrun.run_cell("wharf-stream", shape, config=cfg, info=info, device=dev,
+                              seed=PLANS["seed"], verbose=False)
+        got = rec["launches"]
+        assert got == {k: int(v) for k, v in rec["kernel_calls"].items()}, (shape, got)
+        assert rec["bytes_per_card"] > 0 and rec["memory"]["peak_bytes"] > 0, shape
+        for k in ops.KERNELS:
+            launches[k] += got[k]
+        cells[f"wharf-stream/{shape}"] = dry_record(rec)
+        torch.cuda.empty_cache()
+    proc, out, log_path = meta
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=600)
+    wait_s = time.perf_counter() - t0
+    with open(log_path) as f:
+        tail = f.read()[-2000:]
+    assert rc == 0, f"the meta dry-run failed (rc {rc}): {tail}"
+    with open(out) as f:
+        records = json.load(f)
+    for key, rec in records.items():
+        arch, shape, _ = key.split("|")
+        assert rec["flops_per_card"] > 0 and rec["bytes_per_card"] > 0, key
+        cells[f"{arch}/{shape}"] = dry_record(rec)
+    assert len(cells) == 42, len(cells)
+    return dict(card_constants=dict(peak_flops_bf16=card_mesh.PEAK_FLOPS_BF16,
+                                    peak_flops_f32=card_mesh.PEAK_FLOPS_F32,
+                                    hbm_bw=card_mesh.HBM_BW, nvlink_bw=card_mesh.NVLINK_BW),
+                meta_wait_s=wait_s, cells=cells, launches=launches)
+
+
+def phase_profile_cell(dev) -> dict:
+    """11c: `profile_cell` over PLANS["profile"] at CONFIG's cut: the static
+    table and one run's top device ops, the port's kernels named."""
+    cfg = dryrun.wharf_config(18, max_pending=CONFIG["max_pending"])
+    before = dict(ops.launches)
+    info = dict(WHARF_SHAPES[PLANS["profile"]], n_batches=PLANS["profile_batches"])
+    prof = profile_cell.profile_cell("wharf-stream", PLANS["profile"], config=cfg, info=info,
+                                     device=dev, seed=PLANS["seed"], top=PLANS["top"])
+    launches = {k: ops.launches[k] - before[k] for k in ops.KERNELS}
+    dt = prof["device_ops"]
+    named = {r["kernel"] for r in dt["top"] if r["kernel"]}
+    assert dt["busy_ms"] and 0 < dt["busy_ms"] <= dt["wall_ms"], "profile_cell: device time"
+    tot = prof["totals"]
+    # the profiled run (the counted run's inputs, copied) launches what the
+    # count saw, and the trace names each of those kernels
+    assert {k: r["calls"] for k, r in dt["kernels"].items()} == {
+        k: int(v) for k, v in tot.kernel_calls.items() if v}, (dt["kernels"], tot.kernel_calls)
+    torch.cuda.empty_cache()
+    return dict(static=[list(r) for r in prof["static"]], device_ops=dt,
+                kernels_named=sorted(named), launches=launches,
+                totals=dict(flops=tot.flops, bytes=tot.mem_bytes,
+                            kernel_calls={k: v for k, v in tot.kernel_calls.items() if v}))
+
+
+def phase_plans(dev) -> dict:
+    """Phase 11 (11a, 11b, 11c), its kernel launches summed; 11b's meta
+    cells are counted by a process of their own while 11a runs."""
+    workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=_ROOT)
+    meta = start_meta_dryrun(workdir)
+    try:
+        a = phase_wharf_plans(dev)
+        log("wharf_plans", ok=True, **a)
+        b = phase_dryrun(dev, meta)
+        log("dryrun", ok=True, **b)
+    finally:
+        if meta[0].poll() is None:
+            meta[0].kill()
+        meta[0].wait()
+        shutil.rmtree(workdir, ignore_errors=True)
+    c = phase_profile_cell(dev)
+    log("profile_cell", ok=True, **c)
+    log("reduced_plans", **PLANS_REDUCED)
+    return dict(launches={k: a["launches"][k] + b["launches"][k] + c["launches"][k]
+                          for k in ops.KERNELS})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3536,6 +3761,7 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     gnn_full = phase_gnn(dev)
+    plans = phase_plans(dev)
     next(r for r in kernels if r["name"] == "find_next_packed")["prefix_read"] = prefix_read
     # each kernel's launches on the main paths: order 1 (phase 3), the
     # maintainer (phase 3b), the serve path (phase 3c), and the order-2
@@ -3543,8 +3769,8 @@ def main() -> int:
     # comparison (phase 6: Wharf, II, tree; II and tree at order 2), the
     # sharded engine's four ranks (phase 7b), the launcher's
     # downstream trainer (phase 8b), the LM family and DLRM (phase 9,
-    # none), and the GNN family: the walk-based sampler over phase 3's
-    # store and phase 10 (none)
+    # none), the GNN family: the walk-based sampler over phase 3's
+    # store and phase 10 (none), and the cell plans (phase 11)
     for r in kernels:
         by_path = {"order1": full["launches"][r["name"]],
                    "maintainer": maint["launches"][r["name"]],
@@ -3554,7 +3780,8 @@ def main() -> int:
                    "sharded": sharded["launches"][r["name"]],
                    "trainer": trainer["launches"][r["name"]],
                    "lm": lm["launches"][r["name"]],
-                   "gnn": gnn_path["launches"][r["name"]] + gnn_full["launches"][r["name"]]}
+                   "gnn": gnn_path["launches"][r["name"]] + gnn_full["launches"][r["name"]],
+                   "plans": plans["launches"][r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         if r["name"] in OFF_MAIN_PATH:

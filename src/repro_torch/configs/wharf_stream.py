@@ -96,10 +96,16 @@ class WharfStreamConfig:
 
     def select_backend(self, device=None) -> str:
         """Install this config's FINDNEXT, intersect and megakernel
-        backends as the process defaults; returns the FINDNEXT backend a
-        request of None now resolves to on `device` (the card unless the
-        caller asks for the CPU). "auto" fields leave the corresponding
-        registry untouched."""
+        backends as the process defaults (`install_backends`); returns the
+        FINDNEXT backend a request of None now resolves to on `device`
+        (the card unless the caller asks for the CPU)."""
+        from repro_torch.core import packed_store
+        self.install_backends()
+        return packed_store.get_default_backend(device)
+
+    def install_backends(self) -> None:
+        """Install the explicit backend fields as the process defaults;
+        "auto" fields leave the corresponding registry untouched."""
         from repro_torch.core import packed_store
         from repro_torch.kernels import intersect, megakernel
         if self.find_next_backend != "auto":
@@ -112,7 +118,6 @@ class WharfStreamConfig:
             intersect.set_default_backend(self.intersect_backend)
         if self.megakernel != "auto":
             megakernel.set_default_backend(self.megakernel)
-        return packed_store.get_default_backend(device)
 
 
 def _wharf(smoke: bool = False) -> WharfStreamConfig:

@@ -12,10 +12,13 @@ several ranks on one card (NCCL refuses two ranks on one device). gloo
 takes CUDA tensors itself (torch 2.11 on the H100: `all_to_all_single`
 and a MIN `all_reduce` of int64) and stages them through host memory
 inside its own call, so the time of that copy is part of the collective's
-`seconds`. No wrapper copies a tensor anywhere itself.
+`seconds`. No wrapper copies a tensor anywhere itself. An observer
+installed by `observe` (`launch/op_analysis.py`) is told of each call's
+kind and output bytes.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -25,6 +28,8 @@ NAMES = ("all_reduce", "all_to_all")
 calls = dict.fromkeys(NAMES, 0)
 seconds = dict.fromkeys(NAMES, 0.0)
 _timing = False
+_observer = None
+KINDS = {"all_reduce": "all-reduce", "all_to_all": "all-to-all"}
 
 
 def reset() -> None:
@@ -38,6 +43,18 @@ def set_timing(on: bool) -> None:
     _timing = bool(on)
 
 
+@contextlib.contextmanager
+def observe(observer):
+    """Within the block, each collective calls
+    `observer.collective(kind, output bytes)`."""
+    global _observer
+    saved, _observer = _observer, observer
+    try:
+        yield observer
+    finally:
+        _observer = saved
+
+
 def _run(name: str, t: torch.Tensor, fn):
     if _timing and t.is_cuda:
         torch.cuda.synchronize(t.device)
@@ -47,6 +64,8 @@ def _run(name: str, t: torch.Tensor, fn):
         torch.cuda.synchronize(t.device)
     seconds[name] += time.perf_counter() - t0
     calls[name] += 1
+    if _observer is not None:
+        _observer.collective(KINDS[name], out.numel() * out.element_size())
     return out
 
 

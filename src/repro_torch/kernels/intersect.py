@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels._launch import call, require
+from repro_torch.kernels._observe import observed
 
 LANES = 128          # the kernel's window alignment (the reference's tile)
 MAX_D = 1024         # the kernel's widest window (32 entries a lane)
@@ -166,6 +167,7 @@ def _choose_math(nbrs_v, valid, member, prev, u_group, u_rank, inv_p, inv_q):
     return nxt, found
 
 
+@observed("intersect_next")
 def factorized_plain(nbrs_v, nbrs_p, prev, u_group, u_rank, inv_p, inv_q):
     """The plain version of the kernel: `_choose_math` over the whole batch
     with the binary-search membership -> (nxt int64 [B], found bool [B])."""
@@ -176,6 +178,7 @@ def factorized_plain(nbrs_v, nbrs_p, prev, u_group, u_rank, inv_p, inv_q):
                         inv_p, inv_q)
 
 
+@observed("intersect_csr", args_of=lambda a: a[1:])
 def _factorized_csr(choose, codes, offsets, v, prev, u, dmax, inv_p, inv_q):
     """`choose` (factorized_plain or _factorized_ref) on the windows of v
     and prev -> (nxt, found, overflow)."""

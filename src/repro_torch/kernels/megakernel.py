@@ -50,6 +50,7 @@ import torch
 from repro_torch.core import pairing
 from repro_torch.kernels import intersect
 from repro_torch.kernels._launch import call, require
+from repro_torch.kernels._observe import observed
 from repro_torch.kernels.delta import CHUNK, decode_rows_plain, packed_rows
 
 BACKENDS = ("cuda", "torch", "ref")
@@ -187,6 +188,7 @@ def _findnext_plain(store, lo, hi, ft, want, k: int):
     return v, found
 
 
+@observed("fused_rewalk_step")
 def fused_step_plain(store, s: FusedStep):
     """The plain version of the kernel -> (nxt int64 [B], code biased int64
     [B], overflow bool [B]). As the kernel, each lane computes only the

@@ -4,7 +4,9 @@ Each wrapper looks at where its tensors lie: on the CPU it runs the plain
 PyTorch version; on the card it launches the CUDA kernel, or raises if the
 launch fails. There is no fallback from the card to the plain version.
 `launches[name]` counts the kernel launches each wrapper made, so that a
-run can show that the main path went through the kernels.
+run can show that the main path went through the kernels. An observer
+(`kernels/_observe.py`) is told of every wrapper call, on the card or on
+the CPU.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from repro_torch.kernels import megakernel as _mk
 from repro_torch.kernels import range_search as _rs
 from repro_torch.kernels import sgns as _sgns
 from repro_torch.kernels import szudzik as _szudzik
+from repro_torch.kernels._observe import observed
 
 KERNELS = ("szudzik_pair", "szudzik_unpair", "delta_decode",
            "find_next_packed", "intersect_next", "intersect_csr",
@@ -40,6 +43,7 @@ def _on_card(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {dev}")
 
 
+@observed("szudzik_pair")
 def szudzik_pair(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """int64 operands < 2^32 -> biased int64 Szudzik codes."""
     x, y = torch.broadcast_tensors(x, y)
@@ -50,6 +54,7 @@ def szudzik_pair(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@observed("szudzik_unpair")
 def szudzik_unpair(z: torch.Tensor):
     """biased int64 codes -> (x, y) int64."""
     if not _on_card(z):
@@ -59,6 +64,7 @@ def szudzik_unpair(z: torch.Tensor):
     return out
 
 
+@observed("delta_decode")
 def delta_decode(packed, widths, anchors_hi, anchors_lo, rows):
     """Decode chunks `rows` (int64 [R]) -> biased int64 codes [R, 128]."""
     if not _on_card(packed, widths, anchors_hi, anchors_lo, rows):
@@ -70,6 +76,7 @@ def delta_decode(packed, widths, anchors_hi, anchors_lo, rows):
     return out
 
 
+@observed("find_next_packed")
 def find_next_packed(packed, widths, anchors_hi, anchors_lo, chunk_idx,
                      f_targets):
     """Packed FINDNEXT: chunk_idx [Q, K], f_targets int64 [Q] ->
@@ -84,6 +91,7 @@ def find_next_packed(packed, widths, anchors_hi, anchors_lo, chunk_idx,
     return out
 
 
+@observed("intersect_next")
 def intersect_next(nbrs_v, nbrs_p, prev, u_group, u_rank, inv_p: float,
                    inv_q: float):
     """The exact factorized node2vec step: windows int64 [B, D], prev int64
@@ -99,6 +107,7 @@ def intersect_next(nbrs_v, nbrs_p, prev, u_group, u_rank, inv_p: float,
     return out
 
 
+@observed("intersect_csr")
 def intersect_csr(codes, offsets, v, prev, u, dmax: int, inv_p: float,
                   inv_q: float):
     """The exact factorized node2vec step from the graph's CSR: codes int64
@@ -114,6 +123,7 @@ def intersect_csr(codes, offsets, v, prev, u, dmax: int, inv_p: float,
     return out
 
 
+@observed("fused_rewalk_step")
 def fused_rewalk_step(store, step):
     """One fused rewalk step (`megakernel.FusedStep`) over the packed
     `store` -> (nxt int64 [B], code biased int64 [B], overflow bool [B])."""
@@ -124,6 +134,7 @@ def fused_rewalk_step(store, step):
     return out
 
 
+@observed("sgns_step")
 def sgns_step(u: torch.Tensor, v_pos: torch.Tensor, v_neg: torch.Tensor):
     """The fused SGNS step: u, v_pos f32 [B, D], v_neg f32 [B, K, D] ->
     (loss [B], du [B, D], dvp [B, D], dvn [B, K, D])."""

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.core.pairing import szudzik_unpair
 from repro_torch.kernels._launch import call, require
+from repro_torch.kernels._observe import observed
 from repro_torch.kernels.delta import CHUNK, decode_rows_plain, packed_rows
 
 QUERY_SLAB = 4096   # queries per plain-version slab
@@ -35,6 +36,7 @@ def _search_plain_slab(packed, widths, a_hi, a_lo, chunk_idx, f_targets):
     return val, found
 
 
+@observed("find_next_packed")
 def find_next_packed_plain(packed, widths, a_hi, a_lo, chunk_idx, f_targets):
     """chunk_idx int [Q, K]; f_targets int64 [Q] -> (v int64 [Q], found
     bool [Q])."""

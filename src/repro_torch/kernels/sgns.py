@@ -35,6 +35,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels._launch import call, require
+from repro_torch.kernels._observe import observed
 
 ROWS = 8        # the reference's row tile: pair batches are padded to it
 MAX_K = 16      # the kernel keeps K negative rows of a lane in registers
@@ -79,6 +80,7 @@ def _softplus(x):
     return torch.logaddexp(torch.zeros_like(x), x)
 
 
+@observed("sgns_step")
 def sgns_plain(u, vp, vn):
     """The plain version of the kernel: the fused forward and closed-form
     backward (the reference's `_sgns_math`) over the whole batch: loss =

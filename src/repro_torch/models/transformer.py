@@ -11,10 +11,11 @@ reference's `lax.scan` over layers (or over (local, global) pairs) is a
 loop over the same groups, each under `torch.utils.checkpoint` when
 `cfg.remat` and gradients are on.
 
-The reference calls `act_sharding.constrain` on q, k, the attention
-output, the logits and the MoE buffer; without a mesh every call is the
-identity (`repro/models/act_sharding.py`), so the port has none. Its
-intent comes with the port of `launch/steps.py`.
+`act_sharding.constrain` is called where the reference calls it: on q, k,
+the attention output, the logits and the expert-parallel MoE buffer. It is
+the identity on plain tensors and without an ambient mesh
+(`launch.mesh.set_mesh`); on DTensors under a mesh it redistributes to the
+logical names' placements.
 
 Numerics follow the reference's casts: RMSNorm's f32 statistics cast back
 to the input's dtype, attention scores cast to f32 before the softcap,
@@ -43,6 +44,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random as jr
+from repro_torch.models.act_sharding import constrain
 
 F32 = torch.float32
 
@@ -317,6 +319,8 @@ def ffn_moe(x, p, cfg: LMConfig):
     buf = torch.zeros((ep, cap + 1, d), dtype=cfg.dtype, device=x.device)
     buf = buf.index_put((e_idx, c_idx), xt.repeat_interleave(m.top_k, dim=0),
                         accumulate=True)[:, :cap]
+    if ep % 16 == 0:  # expert-parallel layout (matches the param rules)
+        buf = constrain(buf, "expert", None, None)
     h = a(torch.einsum("ecd,edf->ecf", buf, p["we_gate"]))
     h = h * torch.einsum("ecd,edf->ecf", buf, p["we_up"])
     out_buf = torch.einsum("ecf,efd->ecd", h, p["we_down"])  # [E, cap, d]
@@ -346,8 +350,11 @@ def layer_fwd(x, p, cfg: LMConfig, positions, kv=None, is_local=False,
     v = v.reshape(b, s, nkv, hd)
     window = cfg.sliding_window if is_local else None
     if kv is None:
+        q = constrain(q, "batch", None, "tp", None)
+        k = constrain(k, "batch", None, None, None)
         mask = _causal_mask(s, s, 0, window, x.device)[None]
         out = attention(q, k, v, mask, cfg.attn_softcap)
+        out = constrain(out, "batch", None, "tp", None)
         new_kv = (k, v)
     else:
         kc, vc = kv
@@ -416,6 +423,8 @@ def _embed(params, tokens, cfg: LMConfig):
 def _unembed(params, x, cfg: LMConfig):
     unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     logits = (x @ unembed.to(x.dtype)).to(F32)
+    # vocab-sharded logits: [B, S, V] from forward, [B, V] from prefill
+    logits = constrain(logits, "batch", *[None] * (logits.dim() - 2), "tp")
     return _softcap(logits, cfg.final_softcap)
 
 

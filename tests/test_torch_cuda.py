@@ -6,7 +6,8 @@ downstream maintainer, the stream generators, the II and tree
 baselines, and the sharded engine (4 gloo ranks on the card = the same
 ranks on the CPU = the single-host card engine; 1 rank on NCCL); the LM
 family, DLRM and the GNN family at their smoke configs (f32, TF32 off),
-and the GNN samplers.
+the GNN samplers; and the wharf family's cell plans card = CPU with their
+kernel counts, and the dry-run of a wharf cell on the card.
 
 Run on a machine with an NVIDIA sm_90a card:  pytest -m cuda tests/test_torch_*.py
 Without a card every test here skips (decided inside the fixture). This
@@ -952,3 +953,28 @@ def test_gnn_samplers_on_card_equal_cpu(dev):
     assert len(want) == len(got) == 7
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+def test_wharf_plans_on_card_equal_cpu(dev):
+    """chip_smoke's phase 11a: the 13 wharf cell plans at the smoke config
+    on the card and on the CPU from the same inputs, every output leaf bit
+    for bit; op_analysis's kernel calls on the card = the plain twins'
+    calls on the CPU = the launch counts; kernels 1-6 launched."""
+    import chip_smoke
+    res = chip_smoke.phase_wharf_plans(dev)
+    assert len(res["cells"]) == 13
+
+
+def test_dryrun_of_a_wharf_cell_on_the_card(dev):
+    """The dry-run of a wharf cell on real inputs on the card at a cut
+    config: its kernel calls = the card's launches in the counted run, a
+    peak, the card's name; and a meta cell's record beside it."""
+    from repro_torch.launch import dryrun
+    cfg = dryrun.wharf_config(12, max_pending=4)
+    rec = dryrun.run_cell("wharf-stream", "stream_10k_mixed", config=cfg, device=dev,
+                          verbose=False)
+    assert rec["launches"] == {k: int(v) for k, v in rec["kernel_calls"].items()}
+    assert rec["launches"]["szudzik_pair"] > 0 and rec["memory"]["peak_bytes"] > 0
+    assert rec["card"] == torch.cuda.get_device_name(0)
+    meta = dryrun.run_cell("gemma2-2b", "train_4k", verbose=False)
+    assert meta["device"] == "meta" and meta["launches"] is None

@@ -5,8 +5,8 @@ Held: for every cell of the GNN, LM and recsys families, at the smoke and
 the full configs, the step name, every argument leaf's path, shape and
 dtype (the reference's uint32 PRNG key is the port's int64 key) and
 `model_flops` exactly, every argument on the meta device, and the
-qwen1.5-110b train_4k plan built in well under a second; the wharf
-family and a mesh refused. Then one `train_step` of `_gnn_full_plan` and
+qwen1.5-110b train_4k plan built in well under a second; a wharf cell
+and a cell on a fake-backend mesh built. Then one `train_step` of `_gnn_full_plan` and
 of `_gnn_sampled_plan` per arch against the jitted reference on the same
 parameters, inputs and key, within GNN_TOL: loss, gradient norm, the new
 parameters and moments. The sampled plan's three cells whose loss runs
@@ -101,11 +101,26 @@ def test_full_width_plans_allocate_nothing_and_build_fast():
     assert steps._pad(1) == steps._pad(512) == 512 and steps._pad(513) == 1024
 
 
-def test_wharf_cells_and_meshes_are_refused():
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        steps.build_cell("wharf-stream", "stream_10k_mixed", smoke=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        steps.build_cell("gat-cora", "molecule", mesh=_mesh(), smoke=True)
+def test_wharf_cells_and_meshes_build():
+    """The wharf family builds (tests/test_torch_wharf_plans.py holds each
+    plan against the reference's), and so does a cell on a `DeviceMesh`
+    (tests/test_torch_mesh.py holds the placements)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.kernels import megakernel
+    plan = steps.build_cell("wharf-stream", "stream_10k_mixed", smoke=True)
+    assert plan.step_name == "walk_stream_step" and plan.in_shardings is None
+    assert megakernel.default_backend_request() is None   # "auto" installs nothing
+    torch.distributed.init_process_group("fake", world_size=256, rank=0, store=FakeStore())
+    try:
+        mesh = make_production_mesh(device_type="cpu")
+        plan = steps.build_cell("gat-cora", "molecule", mesh=mesh, smoke=True)
+        assert set(leaf_paths(plan.in_shardings)) == set(leaf_paths(plan.args))
+        assert plan.in_shardings[3].placements == (
+            torch.distributed.tensor.Shard(0), torch.distributed.tensor.Replicate())
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def _params_both(arch, jcfg, cfg, d_feat, seed=4):
