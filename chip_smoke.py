@@ -176,6 +176,17 @@ every phase passed):
      memory; a wharf record's kernel calls = its launches. 11c:
      `profile_cell` over stream_10k_pipelined (1 batch) at CONFIG's cut: the static
      table and the top device ops by device time, the kernels named.
+     11d, the partitioned dry-run: 11d-a `dryrun --mesh both` over
+     six LM, GNN and recsys cells on meta (a process of its own, started
+     before phase 9): a rank's FLOPs, bytes and collective bytes by kind on the 16 x
+     16 and 2 x 16 x 16 meshes, FLOPs x ranks >= 11b's one-card count;
+     11d-b the sharded steps for real (launch/partitioned.py): four gloo
+     ranks sharing the card on a (data 2, model 2) mesh run gemma2-2b's
+     train and decode steps (full width, 2 layers, f32) and dlrm-rm2's
+     serve_p99, each rank's output shards against the same step unsharded
+     on the card, its collectives = the meta count of the same (2, 2)
+     plan, no kernel launched (the counts set to 0 before and read 0
+     after); ms a step (under the work counter) and each rank's peak GB.
      The cuts are printed as `reduced_plans`.
 Phase 2 also runs a small maintainer on the card against the CPU and
 against a plain engine, and the order-1 stream with `WalkConfig(metrics=
@@ -226,7 +237,7 @@ from repro_torch.distr.sharded import (consolidate, local_shard_state,  # noqa: 
 from repro_torch.downstream import EmbeddingMaintainer, MaintainerConfig  # noqa: E402
 from repro_torch.kernels import _build, delta, intersect, megakernel, ops  # noqa: E402
 from repro_torch.kernels import range_search, sgns, szudzik  # noqa: E402
-from repro_torch.launch import dryrun, op_analysis, profile_cell, steps  # noqa: E402
+from repro_torch.launch import dryrun, op_analysis, partitioned, profile_cell, steps  # noqa: E402
 from repro_torch.launch import mesh as card_mesh  # noqa: E402
 from repro_torch.launch import train as launch  # noqa: E402
 from repro_torch.models import dlrm, gnn, sampling  # noqa: E402
@@ -451,6 +462,25 @@ PLANS_REDUCED = dict(REDUCED, wharf_config=(
     n_batches="stream_10k_pipelined 8 -> 2 batches in 11b, 1 in 11c (the run's time "
               "limit: 8 batches took 25.6 s to count in 11b and 179 s to count, run "
               "and trace in 11c)")
+# phase 11d: the partitioned dry-run (launch/dryrun.py --mesh both) of six
+# cells on meta, in a process of its own from phase 9 on (11d-a), and the
+# sharded steps run for real on four gloo ranks sharing the card, a (data
+# 2, model 2) mesh, against the same steps unsharded on the card (11d-b,
+# launch/partitioned.py): gemma2-2b at full width cut to one local/global
+# pair in f32, one train step and one decode step; dlrm-rm2 serve_p99
+PARTITION = dict(
+    meta_cells=("gemma2-2b/train_4k", "gemma2-2b/decode_32k", "qwen2-moe-a2.7b/train_4k",
+                "dlrm-rm2/serve_p99", "dlrm-rm2/train_batch",
+                "graphsage-reddit/minibatch_lg"),
+    mesh=(2, 2), seed=2323, layers=2,
+    train={"kind": "train", "seq_len": 2048, "global_batch": 2},
+    decode={"kind": "decode", "seq_len": 32768, "global_batch": 4})
+PARTITION_REDUCED = dict(
+    gemma2_2b="26 -> 2 layers (one local/global pair), bf16 -> f32, in 11d-b",
+    train_4k="256 x 4,096 -> 2 x 2,048 tokens in 11d-b",
+    decode_32k="128 -> 4 sequences of a 32,768-position cache in 11d-b",
+    cells="6 of the 40 LM, GNN and recsys cells in 11d-a (the dry-run CLI sweeps all 40 "
+          "on both meshes: `--mesh both`)")
 PLAN_KERNELS = ("szudzik_pair", "szudzik_unpair", "delta_decode", "find_next_packed",
                 "intersect_csr", "fused_rewalk_step")
 
@@ -3618,7 +3648,8 @@ def start_meta_dryrun(workdir: str):
         p for p in (os.path.join(_ROOT, "src"), os.environ.get("PYTHONPATH")) if p))
     with open(log_path, "w") as f:
         proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun",
-                                 "--out", out], env=env, stdout=f, stderr=subprocess.STDOUT)
+                                 "--mesh", "1", "--out", out], env=env, stdout=f,
+                                stderr=subprocess.STDOUT)
     return proc, out, log_path
 
 
@@ -3689,24 +3720,130 @@ def phase_profile_cell(dev) -> dict:
                             kernel_calls={k: v for k, v in tot.kernel_calls.items() if v}))
 
 
-def phase_plans(dev) -> dict:
-    """Phase 11 (11a, 11b, 11c), its kernel launches summed; 11b's meta
-    cells are counted by a process of their own while 11a runs."""
-    workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=_ROOT)
+def start_partitioned_dryrun(workdir: str):
+    """11d-a's dry-run CLI (`--mesh both`) over PARTITION["meta_cells"] in
+    a process of its own -> (process, its output file, its log)."""
+    out = os.path.join(workdir, "dryrun_partitioned.json")
+    log_path = os.path.join(workdir, "dryrun_partitioned.log")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(_ROOT, "src"), os.environ.get("PYTHONPATH")) if p))
+    cells = [a for c in PARTITION["meta_cells"] for a in ("--cell", c)]
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun",
+                                 "--mesh", "both", "--out", out] + cells,
+                                env=env, stdout=f, stderr=subprocess.STDOUT)
+    return proc, out, log_path
+
+
+def phase_partitioned_meta(meta, one_card: dict) -> dict:
+    """11d-a: the six cells counted partitioned on the 16 x 16 and 2 x 16
+    x 16 meshes on meta: a rank's FLOPs, bytes and collective bytes by
+    kind, the model ratio and the seconds of each record; each FLOPs and
+    bytes > 0, FLOPs x ranks >= the one-card count (`one_card`: 11b's
+    records by "arch/shape")."""
+    proc, out, log_path = meta
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=600)
+    wait_s = time.perf_counter() - t0
+    with open(log_path) as f:
+        tail = f.read()[-2000:]
+    assert rc == 0, f"the partitioned dry-run failed (rc {rc}): {tail}"
+    with open(out) as f:
+        records = json.load(f)
+    assert len(records) == 2 * len(PARTITION["meta_cells"]), sorted(records)
+    cells = {}
+    for key, rec in records.items():
+        assert rec["flops_per_card"] > 0 and rec["bytes_per_card"] > 0, key
+        whole = one_card[f"{rec['arch']}/{rec['shape']}"]["flops_per_card"]
+        assert rec["flops_per_card"] * rec["n_cards"] >= whole, (key, whole)
+        cells[key] = dict(mesh=rec["mesh"], n_cards=rec["n_cards"],
+                          flops_per_rank=rec["flops_per_card"],
+                          bytes_per_rank=rec["bytes_per_card"],
+                          collective_bytes_per_rank={k: v for k, v in
+                                                     rec["collective_breakdown"].items() if v},
+                          collective_counts={k: v for k, v in rec["collective_counts"].items()
+                                             if v},
+                          model_ratio=rec["flops_ratio_model_over_count"],
+                          count_s=rec["count_s"])
+    return dict(wait_s=wait_s, cells=cells)
+
+
+def phase_partitioned_run(dev, workdir) -> dict:
+    """11d-b: PARTITION's sharded steps on four gloo ranks sharing the
+    card against the same steps unsharded on the card (launch/
+    partitioned.py): every rank's output shards within tolerance (the
+    train step's loss, gradient norm and parameters rtol 1e-4 / atol 1e-5,
+    the parameters where AdamW's first step is not eps-dominated, and its
+    first moments within rtol 1e-4 and 1e-5 of each shard's largest:
+    `partitioned._adamw_compare`; the decode step's logits and cache rtol
+    1e-5 and atol 1e-6 of each shard's largest |value|; DLRM's logits rtol
+    1e-5 / atol 1e-6), its collectives by kind and bytes = the meta
+    count of the same (2, 2) plan, no kernel launched; ms a step, each
+    rank's peak GB and the largest parameter error over every element."""
+    torch.cuda.empty_cache()     # the ranks share the card with this process
+    gemma = dataclasses.replace(get_arch("gemma2-2b").make_config(False),
+                                n_layers=PARTITION["layers"], dtype=torch.float32)
+    # the train step at full width: 98% of the tied embedding's gradients
+    # lie below AdamW's eps, where its first step moves a parameter by
+    # lr * g / eps, 3e4 times the gradients' f32 rounding (partitioned.
+    # _adamw_compare); the second moments are left uncompared (memory)
+    cells = [dict(arch="gemma2-2b", shape="train_4k", info=PARTITION["train"], config=gemma,
+                  skip=("1/v",), adamw_eps=True),
+             # the logits at full width within 1e-6 of the largest |logit|:
+             # 5.7e-6 off at |logit| 0.4 measured on one H100 (phase 9b's f32
+             # decode is 2.29e-5 off between the card and the CPU)
+             dict(arch="gemma2-2b", shape="decode_32k", info=PARTITION["decode"], config=gemma,
+                  tol=dict(partitioned.FORWARD_TOL, scaled=True)),
+             dict(arch="dlrm-rm2", shape="serve_p99",
+                  config=get_arch("dlrm-rm2").make_config(False))]
+    ops.reset_launches()
+    results = []
+    with tf32_off():
+        # the train step's args and outputs alone, then the other two: this
+        # process holds a call's args and outputs while its ranks run
+        for group in (cells[:1], cells[1:]):
+            results += partitioned.check(group, mesh_shape=PARTITION["mesh"],
+                                         seed=PARTITION["seed"], device=dev, workdir=workdir)
+    assert sum(ops.launches.values()) == 0, dict(ops.launches)
+    out = {}
+    for r in results:
+        for i, rr in enumerate(r["ranks"]):
+            bad = {k: c for k, c in rr["compare"].items() if c["excess"] > 0}
+            assert not bad, (r["cell"], i, bad)
+            assert partitioned.collectives_match(r["meta"], rr["collectives"], i), (
+                r["cell"], i, rr["collectives"], r["meta"])
+            assert sum(rr["launches"].values()) == 0, (r["cell"], i, rr["launches"])
+        out[r["cell"]] = dict(
+            unsharded_ms=r["unsharded_ms"], ms_by_rank=[rr["ms"] for rr in r["ranks"]],
+            peak_gb_by_rank=[rr["peak_gb"] for rr in r["ranks"]],
+            collectives=r["ranks"][0]["collectives"],
+            max_abs_err=max(c["max_abs_err"] for rr in r["ranks"]
+                            for c in rr["compare"].values()))
+    return out
+
+
+def phase_plans(dev, workdir, part_meta) -> dict:
+    """Phase 11 (11a, 11b, 11c, 11d), its kernel launches summed; 11b's
+    meta cells are counted by a process of its own while 11a runs, 11d-a's
+    by another (`part_meta`, started before phase 9 in `workdir`); the
+    processes are ended and `workdir` removed after."""
     meta = start_meta_dryrun(workdir)
     try:
         a = phase_wharf_plans(dev)
         log("wharf_plans", ok=True, **a)
         b = phase_dryrun(dev, meta)
         log("dryrun", ok=True, **b)
+        c = phase_profile_cell(dev)
+        log("profile_cell", ok=True, **c)
+        log("partitioned_meta", ok=True, **phase_partitioned_meta(part_meta, b["cells"]))
+        log("partitioned_run", ok=True, **phase_partitioned_run(dev, workdir))
     finally:
-        if meta[0].poll() is None:
-            meta[0].kill()
-        meta[0].wait()
+        for proc, _, _ in (meta, part_meta):
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
         shutil.rmtree(workdir, ignore_errors=True)
-    c = phase_profile_cell(dev)
-    log("profile_cell", ok=True, **c)
-    log("reduced_plans", **PLANS_REDUCED)
+    log("reduced_plans", **PLANS_REDUCED, **PARTITION_REDUCED)
     return dict(launches={k: a["launches"][k] + b["launches"][k] + c["launches"][k]
                           for k in ops.KERNELS})
 
@@ -3755,13 +3892,23 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     phase_quality(dev)
-    workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=_ROOT)
+    # 11d-a's partitioned counts need no card: they count beside phases 9
+    # and 10 (beside 11a they slowed its CPU half)
+    plans_dir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=_ROOT)
+    part_meta = start_partitioned_dryrun(plans_dir)
     try:
-        lm = phase_lm(dev, workdir)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    gnn_full = phase_gnn(dev)
-    plans = phase_plans(dev)
+        workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=_ROOT)
+        try:
+            lm = phase_lm(dev, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        gnn_full = phase_gnn(dev)
+    except BaseException:
+        part_meta[0].kill()
+        part_meta[0].wait()
+        shutil.rmtree(plans_dir, ignore_errors=True)
+        raise
+    plans = phase_plans(dev, plans_dir, part_meta)
     next(r for r in kernels if r["name"] == "find_next_packed")["prefix_read"] = prefix_read
     # each kernel's launches on the main paths: order 1 (phase 3), the
     # maintainer (phase 3b), the serve path (phase 3c), and the order-2

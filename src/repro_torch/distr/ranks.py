@@ -19,6 +19,8 @@ TIMEOUT = datetime.timedelta(seconds=600)
 
 def _entry(rank: int, n_ranks: int, backend: str, workdir: str,
            threads: int, fn, payload) -> None:
+    import faulthandler
+    faulthandler.enable()      # a rank that crashes prints where
     torch.set_num_threads(threads)
     dist.init_process_group(
         backend, init_method="file://" + os.path.join(workdir, "rendezvous"),

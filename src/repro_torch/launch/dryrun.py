@@ -1,30 +1,40 @@
 """Dry-run: count every (architecture x input shape) cell's work and set
 it against the card's roofline (port of `repro/launch/dryrun.py`).
 
-    python -m repro_torch.launch.dryrun                       # LM, GNN, recsys
-    python -m repro_torch.launch.dryrun --arch gemma2-2b --shape train_4k
-    python -m repro_torch.launch.dryrun --include-wharf --wharf-log2-n 14
-    python -m repro_torch.launch.dryrun --device cpu --include-wharf --wharf-log2-n 10
+    python -m repro_torch.launch.dryrun                       # LM, GNN, recsys, both meshes
+    python -m repro_torch.launch.dryrun --mesh single --arch gemma2-2b --shape train_4k
+    python -m repro_torch.launch.dryrun --cell dlrm-rm2/serve_p99 --cell gemma2-2b/decode_32k
+    python -m repro_torch.launch.dryrun --mesh 1              # one card's step
+    python -m repro_torch.launch.dryrun --mesh 1 --include-wharf --wharf-log2-n 14
+    python -m repro_torch.launch.dryrun --mesh 1 --device cpu --include-wharf --wharf-log2-n 10
 
 The LM, GNN and recsys cells build at their full configs on the meta
 device and are counted there (`op_analysis`: nothing is allocated, the
-microbatch loop is counted once and scaled). The wharf cells' ops have
-data-dependent shapes, so they run on real inputs drawn from `--seed` on
-`--device` (the card unless the caller asks for the CPU), at the full
-config cut to 2^`--wharf-log2-n` vertices. The reference compiles each
-cell for a 256- or 512-chip mesh and counts one chip's partition; the port
-counts one card's step (`mesh` "1"). Results accumulate in `--out`, one
-record a cell.
+microbatch loop is counted once and scaled). As the reference's, the
+default counts each cell partitioned on the 16 x 16 mesh (`--mesh single`)
+and the 2 x 16 x 16 one (`multi`; `both`): the plan built on the mesh,
+its args DTensors placed by the plan's shardings (`steps.partition`), the
+counts those of one rank (rank 0, whose shard is the largest where a dim
+does not divide), over a process group of the "fake" backend of 256 or 512
+ranks made in this process. `--mesh 1` counts one card's step of the
+whole cell. The wharf cells' ops have data-dependent shapes, so they run
+one card's step on real inputs drawn from `--seed` on `--device` (the
+card unless the caller asks for the CPU), at the full config cut to
+2^`--wharf-log2-n` vertices, whatever `--mesh` says. Results accumulate
+in `--out`, one record a cell and mesh: keyed `arch|shape|single` or
+`|multi` on a mesh, `arch|shape|full` (or `|smoke`) on one card.
 
-A record: the counted FLOPs (by dtype) and bytes, collective bytes and
-counts by kind, the seven kernels' calls and bytes (and, on the card, the
-launches `kernels/ops.py` counted in the run), `model_flops` and its
-ratio to the count, the roofline terms against the H100 constants of
-`launch/mesh.py` (compute: FLOPs of bf16/f16 products at the bf16 peak,
-the rest at the f32 peak; memory: bytes at the HBM rate; collective: bytes
-at the NVLink rate), the dominant term, the argument and output bytes,
-and, for a run on the card, its peak device memory. A count on the CPU
-is a count: its `device` says so, and it has no peak.
+A record: the counted FLOPs (by dtype) and bytes a rank, collective bytes
+and counts by kind a rank, the seven kernels' calls and bytes (and, on the
+card, the launches `kernels/ops.py` counted in the run), `model_flops` and
+its ratio to the count times the ranks (`model_flops / (flops * n_cards)`),
+the roofline terms a card against the H100 constants of `launch/mesh.py`
+(compute: FLOPs of bf16/f16 products at the bf16 peak, the rest at the f32
+peak; memory: bytes at the HBM rate; collective: bytes at the NVLink rate,
+though 256 cards span many NVLink domains), the dominant term, the
+argument and output bytes a rank, and, for a run on the card, its peak
+device memory. A count on the CPU is a count: its `device` says so, and
+it has no peak.
 """
 from __future__ import annotations
 
@@ -47,12 +57,6 @@ def roofline_terms(flops_by_dtype: dict, bytes_accessed: float, coll_bytes: floa
     terms = {"compute_s": compute, "memory_s": bytes_accessed / HBM_BW,
              "collective_s": coll_bytes / NVLINK_BW}
     return terms, max(terms, key=terms.get)
-
-
-def _nbytes(tree) -> int:
-    from repro_torch.tree import leaf_paths
-    return sum(t.numel() * t.element_size() for t in leaf_paths(tree).values()
-               if isinstance(t, torch.Tensor))
 
 
 def wharf_config(log2_n: int = 20, max_pending: int = 8):
@@ -167,6 +171,70 @@ def one_rank_group(device):
         dist.destroy_process_group()
 
 
+def fake_mesh(multi_pod: bool = False):
+    """The 16 x 16 (or 2 x 16 x 16) production mesh over a "fake" process
+    group of its 256 (512) ranks in this process (`mesh.fake_mesh`)."""
+    from repro_torch.launch.mesh import fake_mesh as fake, production_shape
+    return fake(*production_shape(multi_pod))
+
+
+def mesh_name(mesh) -> str:
+    return "x".join(str(n) for n in mesh.shape)
+
+
+def _local_nbytes(tree) -> int:
+    """The bytes of this rank's shards of a tree of DTensors."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.tree import leaf_paths
+    return sum(t.to_local().numel() * t.element_size() if isinstance(t, DTensor)
+               else t.numel() * t.element_size()
+               for t in leaf_paths(tree).values() if isinstance(t, torch.Tensor))
+
+
+def _record(arch, shape, plan, tot, count_s: float, *, mesh: str, n_cards: int, device: str,
+            launches=None, peak=None) -> dict:
+    """A cell's record (module doc) from its counts `tot`, a rank's."""
+    terms, dom = roofline_terms(tot.flops_by_dtype, tot.mem_bytes, tot.coll_total)
+    return {
+        "arch": arch, "shape": shape, "mesh": mesh, "n_cards": n_cards, "device": device,
+        "card": torch.cuda.get_device_name(0) if device.startswith("cuda") else None,
+        "step": plan.step_name, "count_s": count_s,
+        "flops_per_card": tot.flops, "flops_by_dtype": tot.flops_by_dtype,
+        "bytes_per_card": tot.mem_bytes,
+        "collective_bytes_per_card": tot.coll_total,
+        "collective_breakdown": tot.coll_bytes, "collective_counts": tot.coll_counts,
+        "kernel_calls": tot.kernel_calls, "kernel_bytes": tot.kernel_bytes,
+        "launches": launches, "model_flops": plan.model_flops,
+        "flops_ratio_model_over_count": (plan.model_flops / (tot.flops * n_cards)
+                                         if tot.flops else None),
+        "roofline": terms, "bottleneck": dom,
+        "memory": {"argument_bytes": _local_nbytes(plan.args),
+                   "output_bytes": tot.output_bytes, "peak_bytes": peak},
+    }
+
+
+def _say(rec: dict, where: str, per: str) -> None:
+    print(f"[{where}] {rec['arch']} x {rec['shape']} ({rec['step']}): counted in "
+          f"{rec['count_s']:.1f}s | {rec['flops_per_card']:.4g} FLOP{per} | "
+          f"{rec['bytes_per_card']:.4g} B{per} | coll {rec['collective_bytes_per_card']:.4g} "
+          f"B{per} | bottleneck {rec['bottleneck']}", flush=True)
+
+
+def run_partitioned(arch: str, shape: str, mesh, *, smoke: bool = False,
+                    verbose: bool = True) -> dict:
+    """Count one rank's partition of an LM, GNN or recsys cell on `mesh`
+    (a `DeviceMesh`; `fake_mesh` builds the production ones) on meta."""
+    from repro_torch.launch.steps import build_cell, partition
+    t0 = time.perf_counter()
+    plan = partition(build_cell(arch, shape, mesh=mesh, smoke=smoke), mesh)
+    tot = analyze(plan)
+    rec = _record(arch, shape, plan, tot, time.perf_counter() - t0, mesh=mesh_name(mesh),
+                  n_cards=mesh.size(), device="meta")
+    if verbose:
+        _say(rec, rec["mesh"], "/rank")
+    return rec
+
+
 def run_cell(arch: str, shape: str, *, smoke: bool = False, config=None, info=None,
              device=None, seed: int = 0, verbose: bool = True) -> dict:
     """Count one cell and set it against the roofline. LM, GNN and recsys
@@ -199,39 +267,28 @@ def run_cell(arch: str, shape: str, *, smoke: bool = False, config=None, info=No
     if family == "wharf" and dev.startswith("cuda"):
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
-    t_count = time.perf_counter() - t0
-    terms, dom = roofline_terms(tot.flops_by_dtype, tot.mem_bytes, tot.coll_total)
-    rec = {
-        "arch": arch, "shape": shape, "mesh": "1", "n_cards": 1, "device": dev,
-        "card": torch.cuda.get_device_name(0) if dev.startswith("cuda") else None,
-        "step": plan.step_name, "count_s": t_count,
-        "flops_per_card": tot.flops, "flops_by_dtype": tot.flops_by_dtype,
-        "bytes_per_card": tot.mem_bytes,
-        "collective_bytes_per_card": tot.coll_total,
-        "collective_breakdown": tot.coll_bytes, "collective_counts": tot.coll_counts,
-        "kernel_calls": tot.kernel_calls, "kernel_bytes": tot.kernel_bytes,
-        "launches": launches if dev.startswith("cuda") else None,
-        "model_flops": plan.model_flops,
-        "flops_ratio_model_over_count": plan.model_flops / tot.flops if tot.flops else None,
-        "roofline": terms, "bottleneck": dom,
-        "memory": {"argument_bytes": _nbytes(plan.args), "output_bytes": tot.output_bytes,
-                   "peak_bytes": peak},
-    }
+    rec = _record(arch, shape, plan, tot, time.perf_counter() - t0, mesh="1", n_cards=1,
+                  device=dev, launches=launches if dev.startswith("cuda") else None, peak=peak)
     if verbose:
-        print(f"[{dev}] {arch} x {shape} ({plan.step_name}): counted in {t_count:.1f}s | "
-              f"{tot.flops:.4g} FLOP | {tot.mem_bytes:.4g} B | coll {tot.coll_total:.4g} B | "
-              f"bottleneck {dom}", flush=True)
+        _say(rec, dev, "")
     return rec
+
+
+MESHES = {"1": [None], "single": [False], "multi": [True], "both": [False, True]}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(allow_abbrev=False)
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
+    ap.add_argument("--cell", action="append", default=[], metavar="ARCH/SHAPE",
+                    help="count only these cells (repeatable)")
+    ap.add_argument("--mesh", choices=list(MESHES), default="both",
+                    help="16x16 (single), 2x16x16 (multi), both, or 1: one card's step")
     ap.add_argument("--smoke", action="store_true", help="the smoke configs")
     ap.add_argument("--out", default="dryrun_results_torch.json")
     ap.add_argument("--include-wharf", action="store_true",
-                    help="also count the wharf-stream cells (real inputs)")
+                    help="also count the wharf-stream cells (real inputs, one card)")
     ap.add_argument("--wharf-log2-n", type=int, default=20,
                     help="the wharf config's vertices, 2^N (20: uncut)")
     ap.add_argument("--seed", type=int, default=0)
@@ -247,26 +304,39 @@ def main(argv=None):
         cells = [c for c in cells if c[0] == args.arch]
     if args.shape:
         cells = [c for c in cells if c[1] == args.shape]
+    if args.cell:
+        cells = [c for c in cells if "/".join(c) in args.cell]
     try:
         with open(args.out) as f:
             results = json.load(f)
     except (OSError, json.JSONDecodeError):
         results = {}
     wcfg = None if args.smoke else wharf_config(args.wharf_log2_n)
+    tag = "smoke" if args.smoke else "full"
     failures = []
-    for arch, shape in cells:
-        key = f"{arch}|{shape}|{'smoke' if args.smoke else 'full'}"
-        wharf = get_arch(arch).family == "wharf"
+
+    def record(key, fn):
         try:
-            results[key] = run_cell(arch, shape, smoke=args.smoke,
-                                    config=wcfg if wharf else None,
-                                    device=args.device, seed=args.seed)
+            results[key] = fn()
         except Exception as e:  # noqa: BLE001  (a cell's failure is recorded; the rest run)
             failures.append((key, repr(e)))
             print(f"FAILED {key}: {e}")
             traceback.print_exc()
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
+
+    one_card = [c for c in cells if get_arch(c[0]).family == "wharf" or args.mesh == "1"]
+    for arch, shape in one_card:
+        wharf = get_arch(arch).family == "wharf"
+        record(f"{arch}|{shape}|{tag}", lambda: run_cell(
+            arch, shape, smoke=args.smoke, config=wcfg if wharf else None,
+            device=args.device, seed=args.seed))
+    sharded = [c for c in cells if c not in one_card]
+    for multi in MESHES[args.mesh] if sharded else []:
+        with fake_mesh(multi) as mesh:
+            for arch, shape in sharded:
+                record(f"{arch}|{shape}|{'multi' if multi else 'single'}",
+                       lambda: run_partitioned(arch, shape, mesh, smoke=args.smoke))
     print(f"\n{len(results)} cells recorded in {args.out}; {len(failures)} failures")
     for k, e in failures:
         print("  FAIL", k, e)

@@ -19,12 +19,13 @@ Importing this module touches no device and no process group.
 from __future__ import annotations
 
 import contextlib
-import contextvars
 
 import torch
 
-_AMBIENT: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
-                                                          default=None)
+# the ambient mesh, process-wide: autograd runs a card's backward (and
+# its checkpointed recompute) on a thread of its own, which a ContextVar
+# would not reach
+_AMBIENT = [None]
 
 
 def production_shape(multi_pod: bool = False):
@@ -43,6 +44,23 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
+@contextlib.contextmanager
+def fake_mesh(shape, names):
+    """A mesh of `shape` and dim `names` over a process group of the
+    "fake" backend of its size in this process (rank 0; no collective
+    moves data), destroyed after: what the dry-run counts a rank on."""
+    import math
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", world_size=math.prod(shape), rank=0, store=FakeStore())
+    try:
+        yield init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(names))
+    finally:
+        dist.destroy_process_group()
+
+
 def batch_axes(mesh) -> tuple:
     """Mesh dims over which the global batch is sharded."""
     return ("pod", "data") if "pod" in mesh.mesh_dim_names else ("data",)
@@ -55,16 +73,16 @@ def mesh_size(mesh) -> int:
 @contextlib.contextmanager
 def set_mesh(mesh):
     """Make `mesh` the ambient mesh inside the block (`jax.set_mesh`)."""
-    token = _AMBIENT.set(mesh)
+    saved, _AMBIENT[0] = _AMBIENT[0], mesh
     try:
         yield mesh
     finally:
-        _AMBIENT.reset(token)
+        _AMBIENT[0] = saved
 
 
 def current_mesh():
     """The ambient mesh, or None outside `set_mesh`."""
-    return _AMBIENT.get()
+    return _AMBIENT[0]
 
 
 # NVIDIA H100 80GB HBM3 (SXM, 700 W) roofline constants, per card, from

@@ -27,8 +27,14 @@ the compiled HLO.
                        bound formula of the kernels line (`kernel_bytes`);
                        a twin's own aten ops are not counted, so a card
                        count and a CPU count of one plan agree;
-  * collectives      = each `distr/collectives.py` call, its output bytes
-                       by kind, as the walker counts an HLO collective's.
+  * collectives      = each `distr/collectives.py` call and each
+                       `_c10d_functional` collective (what DTensor's
+                       redistributions and the models' explicit sharded
+                       steps run), its output bytes a rank by kind, as the
+                       walker counts an HLO collective's. A DTensor
+                       Shard(i) -> Shard(j) move is one all-to-all of its
+                       output, also where a CPU mesh runs it as all-gather
+                       and chunk.
 
 A loop whose iterations run the same ops is written `for x in
 uniform_loop(xs)`: under `analyze(..., scale_loops=True)` it runs the first
@@ -38,7 +44,13 @@ values are then those of one iteration: a scaled run counts, it computes
 nothing. Plans with meta args are counted on meta tensors; the wharf plans,
 whose ops have data-dependent shapes, on real tensors (`args`).
 
-All numbers are per card: the plans run one card's share.
+All numbers are one rank's. A plan run on one card (no mesh) is one
+card's step of the whole cell. A plan whose args are DTensors
+(`steps.partition`) is counted at its local ops: the counter lets DTensor
+dispatch each op and counts the local op it runs on the shard, and skips
+the ops of DTensor's sharding propagation (on FakeTensors). On a fake
+process group the local shards are rank 0's, the largest where a dim does
+not divide.
 """
 from __future__ import annotations
 
@@ -65,6 +77,11 @@ _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("repro_torch_op_counter
 _NO_TRAFFIC = {"empty", "empty_like", "empty_strided", "new_empty",
                "new_empty_strided", "_unsafe_view", "detach", "alias",
                "lift_fresh", "set_"}
+# functional collectives (DTensor's redistributions) -> the walker's kinds
+_COLLECTIVES = {"all_gather_into_tensor": "all-gather", "all_reduce": "all-reduce",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all"}
+_COLLECTIVE_NS = ("_c10d_functional", "c10d_functional", "_dtensor")
 # a gather reads the window it outputs; a scatter writes its updates
 _GATHERS = {"index", "gather", "index_select", "embedding", "take", "searchsorted"}
 _SCATTERS = {"index_put", "index_put_", "_index_put_impl_", "scatter", "scatter_",
@@ -99,6 +116,12 @@ class Totals:
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _local_nbytes(t: torch.Tensor) -> int:
+    """This rank's bytes of `t` (its shard, for a DTensor)."""
+    from torch.distributed.tensor import DTensor
+    return _nbytes(t.to_local() if isinstance(t, DTensor) else t)
 
 
 def _tensors(tree):
@@ -230,8 +253,13 @@ class _Counter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if self.paused:
+        if _has_dtensor(types):
+            # DTensor runs it on the local shards, which come back here
+            return NotImplemented
+        if self.paused or _has_fake(types):
             return func(*args, **kwargs)
+        if func.namespace in _COLLECTIVE_NS:
+            return self._collective_op(func, args, kwargs)
         formula, decomposes, rule, name, op = self._kind(func)
         if decomposes:
             # as FlopCounterMode: an op with a decomposition is counted as it
@@ -266,6 +294,19 @@ class _Counter(TorchDispatchMode):
         row[0] += nbytes * m
         row[1] += flops * m
         row[2] += m
+        return out
+
+    def _collective_op(self, func, args, kwargs):
+        # DTensor's own all-to-all op runs a collective inside: that one is it
+        outer = func.namespace == "_dtensor"
+        self.paused += outer
+        try:
+            out = func(*args, **kwargs)
+        finally:
+            self.paused -= outer
+        kind = _COLLECTIVES.get(func._overloadpacket.__name__)
+        if kind is not None:
+            self.collective(kind, float(sum(_nbytes(t) for t in _tensors(out))))
         return out
 
     # -- reported by kernels/ops.py and distr/collectives.py
@@ -304,6 +345,45 @@ class _Counter(TorchDispatchMode):
         self.totals.coll_counts[kind] += self.mult
 
 
+def _has_dtensor(types) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(issubclass(t, DTensor) for t in types)
+
+
+def _has_fake(types) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return any(issubclass(t, FakeTensor) for t in types)
+
+
+@contextlib.contextmanager
+def _reshard_as_all_to_all(counter):
+    """Within the block DTensor's Shard(i) -> Shard(j) move counts as one
+    all-to-all of its output: a CPU mesh runs it as an all-gather and a
+    chunk (gloo has no all-to-all there), a card's mesh as an all-to-all."""
+    from torch.distributed.tensor import placement_types as pt
+    orig = getattr(pt, "shard_dim_alltoall", None)
+    if orig is None:
+        yield
+        return
+
+    def counted(input, gather_dim, shard_dim, mesh, mesh_dim):
+        if mesh.device_type != "cpu" or counter.paused:
+            return orig(input, gather_dim, shard_dim, mesh, mesh_dim)
+        counter.paused += 1
+        try:
+            out = orig(input, gather_dim, shard_dim, mesh, mesh_dim)
+        finally:
+            counter.paused -= 1
+        counter.collective("all-to-all", float(_nbytes(out)))
+        return out
+
+    pt.shard_dim_alltoall = counted
+    try:
+        yield
+    finally:
+        pt.shard_dim_alltoall = orig
+
+
 def active() -> Optional[_Counter]:
     """The counter of the analysis running in this context, if any."""
     return _ACTIVE.get()
@@ -324,7 +404,7 @@ def uniform_loop(items):
         counter.mult /= n
 
 
-def _meta_args(plan):
+def meta_args(plan):
     """The plan's meta args, a 0-d integer arg (the decode step's cache
     length) as the host int 0: a meta scalar has no value to index by."""
     return tuple(0 if isinstance(a, torch.Tensor) and a.dim() == 0
@@ -336,15 +416,16 @@ def _count(plan, args, scale_loops: bool):
     from repro_torch.distr import collectives
     from repro_torch.kernels import _observe
     if args is None:
-        args = _meta_args(plan)
+        args = meta_args(plan)
     counter = _Counter(scale_loops)
     token = _ACTIVE.set(counter)
     try:
-        with _observe.observe(counter), collectives.observe(counter), counter:
+        with _observe.observe(counter), collectives.observe(counter), \
+                _reshard_as_all_to_all(counter), counter:
             out = plan.fn(*args)
     finally:
         _ACTIVE.reset(token)
-    counter.totals.output_bytes = float(sum(_nbytes(t) for t in _tensors(out)))
+    counter.totals.output_bytes = float(sum(_local_nbytes(t) for t in _tensors(out)))
     return out, counter
 
 

@@ -9,13 +9,19 @@ alone).
         --shape stream_10k_pipelined --wharf-log2-n 14
     python -m repro_torch.launch.profile_cell --arch gemma2-2b --shape train_4k \\
         --static-only        # meta: the static table, on any machine
+    python -m repro_torch.launch.profile_cell --arch gemma2-2b --shape decode_32k \\
+        --multi              # one rank's table on the 2 x 16 x 16 mesh
 
 A wharf cell runs on real inputs (`dryrun.wharf_inputs`) on `--device`,
 the card unless the caller asks for the CPU; on the CPU the step runs the
 kernels' plain versions, and the device table is the CPU's. The other
 families' plans are meta-only at their full widths: they print the static
-table (`--static-only` is implied). For the runtime phases of a live
-engine see `repro_torch/obs/trace.py`.
+table (`--static-only` is implied). As the reference's, `--mesh single`
+and `--multi` (`--mesh multi`) partition such a plan on the 16 x 16 or
+2 x 16 x 16 mesh (`dryrun.fake_mesh`, `steps.partition`): the table then
+lists one rank's ops at their shard shapes and its collectives; `--mesh
+1`, the default, counts one card's step of the whole cell. For the
+runtime phases of a live engine see `repro_torch/obs/trace.py`.
 """
 from __future__ import annotations
 
@@ -94,13 +100,23 @@ def device_table(run, top: int = 25) -> dict:
 
 def profile_cell(arch: str, shape: str, *, config=None, info=None, device=None,
                  seed: int = 0, top: int = 25, static_only: bool = False,
-                 smoke: bool = False) -> dict:
+                 smoke: bool = False, mesh=None) -> dict:
     """The static table and, for a wharf cell, the profiled run; `info`
-    stands for the shape's entry (a cell cut in batches)."""
+    stands for the shape's entry (a cell cut in batches). With `mesh` (a
+    `DeviceMesh`; LM, GNN and recsys cells) the table is one rank's of the
+    plan partitioned on it."""
     from repro_torch._device import resolve_device
     from repro_torch.configs import get_arch
     from repro_torch.launch.dryrun import wharf_inputs
     from repro_torch.launch.steps import build_cell
+    if mesh is not None:
+        from repro_torch.launch.dryrun import mesh_name
+        from repro_torch.launch.steps import partition
+        plan = partition(build_cell(arch, shape, mesh=mesh, smoke=smoke, config=config,
+                                    info=info), mesh)
+        _, tot, rows = counted_run(plan, top=top)
+        return {"arch": arch, "shape": shape, "step": plan.step_name,
+                "mesh": mesh_name(mesh), "totals": tot, "static": rows}
     plan = build_cell(arch, shape, smoke=smoke, config=config, info=info)
     out = {"arch": arch, "shape": shape, "step": plan.step_name}
     if get_arch(arch).family != "wharf":
@@ -121,9 +137,14 @@ def profile_cell(arch: str, shape: str, *, config=None, info=None, device=None,
 
 def print_profile(prof: dict) -> None:
     tot = prof["totals"]
-    print(f"{prof['arch']} x {prof['shape']} ({prof['step']})")
+    where = f" on the {prof['mesh']} mesh, one rank" if "mesh" in prof else ""
+    print(f"{prof['arch']} x {prof['shape']} ({prof['step']}){where}")
     print(f"totals: flops={tot.flops:.4g} mem={tot.mem_bytes:.4g}B "
           f"coll={tot.coll_total:.4g}B kernels={ {k: v for k, v in tot.kernel_calls.items() if v} }")
+    if "mesh" in prof:
+        print("collectives: " + ", ".join(
+            f"{k} {tot.coll_counts[k]:.0f} x {tot.coll_bytes[k]:.4g}B"
+            for k in tot.coll_bytes if tot.coll_counts[k]))
     print(f"{'bytes':>12s} {'flops':>12s} {'calls':>8s} op                 name  shape")
     for b, fl, opc, name, shape, m in prof["static"]:
         print(f"{b:12.4g} {fl:12.4g} {m:8.0f} {opc:18s} {name[:42]:42s} {shape}")
@@ -149,13 +170,24 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: the card")
     ap.add_argument("--static-only", action="store_true")
+    ap.add_argument("--mesh", choices=("1", "single", "multi"), default="1",
+                    help="16x16 (single), 2x16x16 (multi) or 1: one card's step")
+    ap.add_argument("--multi", action="store_true", help="the 2x16x16 mesh (--mesh multi)")
     args = ap.parse_args(argv)
     from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import fake_mesh
     wharf = get_arch(args.arch).family == "wharf"
     config = wharf_config(args.wharf_log2_n) if wharf and not args.smoke else None
-    print_profile(profile_cell(args.arch, args.shape, config=config, device=args.device,
-                               seed=args.seed, top=args.top, smoke=args.smoke,
-                               static_only=args.static_only))
+    mesh = "multi" if args.multi else args.mesh
+    if mesh != "1" and wharf:
+        ap.error("the wharf cells run one card's step (--mesh 1)")
+    kw = dict(config=config, device=args.device, seed=args.seed, top=args.top,
+              smoke=args.smoke, static_only=args.static_only)
+    if mesh == "1":
+        print_profile(profile_cell(args.arch, args.shape, **kw))
+    else:
+        with fake_mesh(mesh == "multi") as m:
+            print_profile(profile_cell(args.arch, args.shape, mesh=m, **kw))
     return 0
 
 

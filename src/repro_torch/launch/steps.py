@@ -17,8 +17,8 @@ are None and `_lm_train_plan`'s batch lies on one shard, so it accumulates
 one sequence a microbatch. With a `DeviceMesh` (`launch/mesh.py`) they are
 the reference's sharding trees as `sharding.NamedSharding`s (DTensor
 placements, one a mesh dim), and the microbatch count follows the mesh's
-batch dims. Nothing applies them: the step functions run on one card's
-tensors.
+batch dims. `partition(plan, mesh)` applies them: the args become DTensors
+and the step runs as one rank's partition (the models' DTensor paths).
 
 As in the reference, the minibatch plan (`_gnn_sampled_plan`) trains no
 weight but GraphSAGE's: its loss of the other archs runs the forward on
@@ -51,8 +51,10 @@ from repro_torch.launch.sharding import NamedSharding, P
 from repro_torch.models import dlrm as dlrm_mod
 from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.act_sharding import constrain
-from repro_torch.train.optim import AdamWConfig, AdamWState, adamw_init, adamw_update
+from repro_torch.models.act_sharding import (constrain, cut, from_local, is_dtensor, on_mesh,
+                                             reshard, row_lookup, whole)
+from repro_torch.train.optim import (AdamWConfig, AdamWState, adamw_init, adamw_update,
+                                    placed_as)
 from repro_torch.tree import leaf_paths, rebuild, tree_map
 
 F32 = torch.float32
@@ -134,13 +136,19 @@ def _lm_train_plan(arch, cfg, info, mesh) -> CellPlan:
     mb = gb // n_micro
 
     def train_step(params, opt_state, tokens):
-        micro_tokens = tokens.reshape(n_micro, mb, tokens.shape[-1])
-        gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=F32, device=p.device), params)
-        lsum = torch.zeros((), dtype=F32, device=tokens.device)
+        # microbatch i holds rows i, i + n_micro, ...: on a mesh each batch
+        # shard's rows stay on it, one a microbatch (mb carries the batch
+        # dims), and without one (mb = 1) these are rows i, as contiguous
+        micro_tokens = tokens.reshape(mb, n_micro, tokens.shape[-1]).transpose(0, 1)
+        gsum = tree_map(lambda p: torch.zeros_like(p, dtype=F32), params)
+        lsum = on_mesh(torch.zeros((), dtype=F32, device=tokens.device), tokens)
         # every microbatch runs the same ops: a loop a counter may scale
         for batch in uniform_loop(micro_tokens):
             batch = constrain(batch, "batch", None)
             loss, grads = value_and_grad(lambda p: tfm.lm_loss(p, batch, cfg), params)
+            # on a mesh each microbatch's gradients are reduced onto the
+            # parameters' placements, so every iteration runs the same ops
+            grads = placed_as(grads, params)
             gsum = tree_map(lambda a, g: a + g.to(F32), gsum, grads)
             lsum = lsum + loss
         div = torch.tensor(float(n_micro), dtype=F32, device=tokens.device)
@@ -348,28 +356,52 @@ def _gnn_sampled_plan(arch, cfg, info, mesh, shape_name) -> CellPlan:
     opt_cfg = AdamWConfig()
     e_cap = e  # directed edge capacity
 
-    def sample(key, offsets, neighbors, seeds, fan):
+    def sample(key, offsets, neighbors_at, seeds, fan):
         b = seeds.shape[0]
         seeds = seeds.long()
         start = offsets[seeds].long()
         deg = offsets[seeds + 1].long() - start
         r = jr.randint(key, (b, fan), 0, torch.clamp(deg, min=1)[:, None])
-        nbrs = neighbors[torch.clamp(start[:, None] + r, 0, e_cap - 1)]
+        nbrs = neighbors_at(torch.clamp(start[:, None] + r, 0, e_cap - 1))
         mask = (deg[:, None] > 0).expand(b, fan)
         return torch.where(mask, nbrs, seeds[:, None].to(nbrs.dtype)), mask
 
     def train_step(params, opt_state, feats, offsets, neighbors, seeds, labels, key):
+        # on a mesh (DTensor args) the sampling runs on every rank's whole
+        # copy of the key, offsets and seeds; the neighbor array and the
+        # feature table stay row-sharded (masked lookups, `row_lookup`),
+        # and the sampled ids are cut over the batch again for the model
+        if is_dtensor(feats):
+            key, offsets, seeds = whole(key), whole(offsets), whole(seeds)
+
+            def neighbors_at(i):
+                return whole(row_lookup(neighbors, on_mesh(i, neighbors)))
+
+            def batch(t):
+                return reshard(on_mesh(t, feats), "batch", *[None] * (t.dim() - 1))
+
+            def rows(i):
+                return row_lookup(feats, batch(i))
+        else:
+            def neighbors_at(i):
+                return neighbors[i]
+
+            def batch(t):
+                return t
+
+            def rows(i):
+                return feats[i]
         k1, k2 = jr.split(key)
-        h1, m1 = sample(k1, offsets, neighbors, seeds, f1)           # [B, f1]
-        h2, m2 = sample(k2, offsets, neighbors, h1.reshape(-1), f2)
+        h1, m1 = sample(k1, offsets, neighbors_at, seeds, f1)           # [B, f1]
+        h2, m2 = sample(k2, offsets, neighbors_at, h1.reshape(-1), f2)
         h2 = h2.reshape(bsz, f1, f2)
-        dev = feats.device
+        dev = seeds.device
 
         def loss_fn(p):
             if arch == "graphsage-reddit":
-                nbr = {"h1": feats[h1.long()], "h2": feats[h2.long()]}
-                msk = {"h1": m1.to(F32), "h2": m2.reshape(bsz, f1, f2).to(F32)}
-                out = gnn_mod.sage_forward_sampled(p, feats[seeds.long()], nbr, msk, cfg)
+                nbr = {"h1": rows(h1.long()), "h2": rows(h2.long())}
+                msk = {"h1": batch(m1.to(F32)), "h2": batch(m2.reshape(bsz, f1, f2).to(F32))}
+                out = gnn_mod.sage_forward_sampled(p, rows(seeds.long()), nbr, msk, cfg)
                 return _labels_loss(arch, out, labels)
             # star subgraph: local ids 0..B-1 seeds, then h1, then h2
             nodes = torch.cat([seeds, h1.reshape(-1), h2.reshape(-1)]).long()
@@ -379,18 +411,19 @@ def _gnn_sampled_plan(arch, cfg, info, mesh, shape_name) -> CellPlan:
             senders = torch.cat([loc_h1, loc_h2])
             receivers = torch.cat([torch.repeat_interleave(loc_seed, f1),
                                    torch.repeat_interleave(loc_h1, f2)])
-            batch = {"senders": senders.long(), "receivers": receivers.long()}
-            x = feats[nodes]
+            batch_d = {"senders": batch(senders.long()), "receivers": batch(receivers.long())}
+            x = rows(nodes)
             if arch == "equiformer-v2":
-                batch["species"], batch["positions"] = x[:, :1], x[:, 1:4]
+                batch_d["species"], batch_d["positions"] = x[:, :1], x[:, 1:4]
             else:
-                batch["node_feat"] = x
+                batch_d["node_feat"] = x
             if arch == "meshgraphnet":
-                batch["edge_feat"] = torch.ones((senders.shape[0], 4), dtype=F32, device=dev)
+                batch_d["edge_feat"] = batch(torch.ones((senders.shape[0], 4), dtype=F32,
+                                                        device=dev))
             # the reference's forward reads the step's `params`, not `p`
             # (module doc): no gradient reaches p, so no graph is built
             with torch.no_grad():
-                out = _gnn_forward(arch, params, batch, cfg)[:bsz]
+                out = _gnn_forward(arch, params, batch_d, cfg)[:bsz]
             return _labels_loss(arch, out, labels)
 
         loss, grads = value_and_grad(loss_fn, params)
@@ -754,6 +787,69 @@ def _wharf_plan(arch, cfg, info, mesh, shape_name) -> CellPlan:
         in_sh, out_sh = (g_sh, s_sh) + (_rep(mesh),) * 4, s_sh
     return CellPlan(arch, shape_name, "walk_update_step", step, args, in_sh,
                     out_sh, flops_batch, donate_argnums=(1,))
+
+
+# ------------------------------------------------------------ partitioned
+
+
+def local_shape(shape, placements, mesh) -> Tuple[int, ...]:
+    """This rank's shard shape of a tensor of `shape` under `placements`
+    (`act_sharding.cut` on each dim)."""
+    from torch.distributed.tensor import Shard
+    return tuple(cut(n, mesh, [i for i, p in enumerate(placements)
+                               if isinstance(p, Shard) and p.dim == d])[1]
+                 for d, n in enumerate(shape))
+
+
+def _to_dtensor(x, sh, mesh):
+    """`x`, the whole tensor (the same on every rank), as a DTensor of
+    this rank's shard, cut here without a collective."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    from torch.distributed.tensor import Shard
+    if x.is_meta:
+        local = torch.empty(local_shape(x.shape, sh.placements, mesh), dtype=x.dtype,
+                            device="meta")
+    else:
+        idx = []
+        for d, n in enumerate(x.shape):
+            s0, size = cut(n, mesh, [i for i, p in enumerate(sh.placements)
+                                     if isinstance(p, Shard) and p.dim == d])
+            idx.append(slice(s0, s0 + size))
+        local = x[tuple(idx)].contiguous()
+    return from_local(local, mesh, sh.placements, x.shape)
+
+
+def _placed(x, sh, mesh):
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor) and tuple(x.placements) != tuple(sh.placements):
+        return x.redistribute(mesh, sh.placements)
+    return x
+
+
+def partition(plan: CellPlan, mesh, args=None) -> CellPlan:
+    """The plan as one rank of `mesh` runs it: its args DTensors placed by
+    `plan.in_shardings` (on meta each leaf is built from its local shard's
+    shape, so no global tensor is allocated; real tensors, the same on
+    every rank, are cut on each rank), its step run under
+    `set_mesh` with the outputs redistributed to `plan.out_shardings`.
+    `args` default to the plan's meta args, the decode step's cache length
+    a host int. The plan must have been built on `mesh`."""
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.launch.op_analysis import meta_args
+    if plan.in_shardings is None:
+        raise ValueError(f"{plan.arch} x {plan.shape}: built without a mesh")
+    args = meta_args(plan) if args is None else tuple(args)
+    dargs = tuple(tree_map(lambda x, sh: _to_dtensor(x, sh, mesh), a, sh)
+                  for a, sh in zip(args, plan.in_shardings))
+    fn = plan.fn
+
+    def step(*a):
+        with set_mesh(mesh):
+            out = fn(*a)
+            return tree_map(lambda x, sh: _placed(x, sh, mesh), out, plan.out_shardings)
+
+    return dataclasses.replace(plan, fn=step, args=dargs)
 
 
 # ------------------------------------------------------------------ public

@@ -8,7 +8,10 @@ field's bag in one indexing (`_bags`), the same sums. `retrieval_score`
 scores one query against [N, D] candidate embeddings as one product.
 The tables, 26 x 1,000,000 x 64 f32 at full width, are drawn as one
 `normal` in slabs of the flat index (`random.scaled_normal`), bit for
-bit the reference's draw.
+bit the reference's draw. On a mesh (DTensor tables, rows cut over
+"model") the bags are a masked lookup of each rank's rows and one
+all-reduce of the partial bags (`_sharded_bags`), as the reference's
+partition does; the tables are never gathered.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch import random as jr
+from repro_torch.models.act_sharding import from_local, is_dtensor, reshard, to_local
 
 F32 = torch.float32
 
@@ -86,8 +90,37 @@ def embedding_bag(table, indices, offsets_mask=None):
 def _bags(tables, sparse_idx):
     """One bag per sparse field: tables [F, R, D], sparse_idx [B, F, H] ->
     [B, F, D], `embedding_bag(tables[f], sparse_idx[:, f])` for every f."""
+    if is_dtensor(tables):
+        return _sharded_bags(tables, sparse_idx)
     fields = torch.arange(tables.shape[0], device=tables.device)[None, :, None]
     return tables[fields, sparse_idx].sum(dim=2)
+
+
+def _sharded_bags(tables, sparse_idx):
+    """`_bags` of DTensor tables whose rows are sharded (the rule's
+    `P(None, TP, None)`): each rank looks up the indices that fall in its
+    rows, zeros elsewhere, and the partial bags are summed over the rows'
+    mesh dims (one all-reduce, the reference's). The tables are never
+    gathered; the indices keep their batch placements."""
+    from torch.distributed.tensor import Partial, Replicate
+    from repro_torch.models.act_sharding import from_local, shard_range, spanning, to_local
+    mesh = tables.device_mesh
+    rows = spanning(tables, 1)
+    place = [Replicate()] * mesh.ndim
+    for i in rows:
+        place[i] = tables.placements[i]
+    tables = tables.redistribute(mesh, place)
+    idx_place = [Replicate() if i in rows else p for i, p in enumerate(sparse_idx.placements)]
+    sparse_idx = sparse_idx.redistribute(mesh, idx_place)
+    r0, n_rows = shard_range(tables, 1)
+    local, idx = to_local(tables, sparse_idx), sparse_idx.to_local().long()
+    mine = (idx >= r0) & (idx < r0 + n_rows)
+    fields = torch.arange(local.shape[0], device=local.device)[None, :, None]
+    emb = local[fields, torch.where(mine, idx - r0, 0)] * mine[..., None].to(local.dtype)
+    part = [Partial() if i in rows else p for i, p in enumerate(idx_place)]
+    bags = from_local(emb.sum(dim=2), mesh, part,
+                      (sparse_idx.shape[0], tables.shape[0], tables.shape[2]))
+    return bags.redistribute(mesh, idx_place)
 
 
 def _interact(x, bags):
@@ -98,7 +131,15 @@ def _interact(x, bags):
     f = feats.shape[1]
     inter = torch.einsum("bfd,bgd->bfg", feats, feats)
     iu, ju = torch.triu_indices(f, f, offset=1, device=x.device)
-    return torch.cat([x, inter[:, iu, ju]], dim=1)
+    if is_dtensor(inter):
+        # each rank picks its rows' pairs (DTensor's index_put, the pick's
+        # backward, takes no index list with a whole dim in torch 2.11)
+        inter = reshard(inter, "batch", None, None)
+        pairs = from_local(to_local(inter)[:, iu, ju], inter.device_mesh, inter.placements,
+                           (inter.shape[0], iu.numel()))
+    else:
+        pairs = inter[:, iu, ju]
+    return torch.cat([x, pairs], dim=1)
 
 
 def dlrm_forward(params, dense, sparse_idx, cfg: DLRMConfig):

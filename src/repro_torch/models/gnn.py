@@ -28,6 +28,13 @@ enable it), so its RBF is taken in f64 and cast to f32 at the gate.
 Scales are divided by device tensors (`_f32`), never by Python scalars: a
 CUDA tensor over a Python scalar is multiplied by the scalar's reciprocal,
 an ulp off the reference's quotient.
+
+On a mesh (DTensor nodes and edges cut over the batch dims, the
+parameters whole) each edge gather reads the node table made whole on
+every rank (`rows`, `act_sharding.gather_rows`), and the segment sums
+add each rank's edges into partial sums that are reduce-scattered onto
+the node shards; the segment max is all-reduced by max. eqv2's index ops
+over the irreps run on each rank's rows (`act_sharding.on_rows`).
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from typing import Any, List
 import torch
 
 from repro_torch import random as jr
+from repro_torch.models.act_sharding import gather_rows, is_dtensor, on_mesh, on_rows, reshard
 
 F32 = torch.float32
 
@@ -67,26 +75,70 @@ class _SegmentSum(torch.autograd.Function):
 
 def segment_sum(data, segment_ids, num_segments: int):
     """`jax.ops.segment_sum`: rows of `data` added into `num_segments`
-    rows of zeros at `segment_ids`, in row order on the CPU."""
+    rows of zeros at `segment_ids`, in row order on the CPU. On DTensors
+    (`_sharded_segment`) each rank adds its rows, and the result is their
+    sums, reduce-scattered onto segment shards."""
+    if is_dtensor(data):
+        return _sharded_segment(_SegmentSum.apply, "sum", data, segment_ids, num_segments)
     return _SegmentSum.apply(data, segment_ids, num_segments)
 
 
-def segment_max(data, segment_ids, num_segments: int):
-    """`jax.ops.segment_max`: the max of each segment's rows, -inf where a
-    segment is empty."""
+def _segment_max(data, segment_ids, num_segments: int):
     out = torch.full((num_segments,) + tuple(data.shape[1:]), -torch.inf,
                      dtype=data.dtype, device=data.device)
     idx = segment_ids.long().reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
     return out.scatter_reduce(0, idx, data, "amax", include_self=False)
 
 
+def segment_max(data, segment_ids, num_segments: int):
+    """`jax.ops.segment_max`: the max of each segment's rows, -inf where a
+    segment is empty. On DTensors each rank takes the max of its rows, and
+    the result is reduced by max over the ranks that cut the rows."""
+    if is_dtensor(data):
+        return _sharded_segment(_segment_max, "max", data, segment_ids, num_segments)
+    return _segment_max(data, segment_ids, num_segments)
+
+
+def rows(x, ids):
+    """`x[ids]`: on DTensors `act_sharding.gather_rows` (x gathered whole,
+    each rank indexing with its own ids)."""
+    if is_dtensor(x):
+        return gather_rows(x, ids)
+    return x[ids]
+
+
+def _sharded_segment(fn, op: str, data, segment_ids, num_segments: int):
+    """A segment reduction `fn` of DTensor rows: the ids placed as the
+    rows, each rank reduces its own rows into all `num_segments`, and the
+    result is a partial sum (`op` "sum") over the mesh dims that cut the
+    rows, reduce-scattered so that the segments are cut as the rows were
+    (`op` "sum"), or whole after an all-reduce by max ("max"); a mesh dim
+    that cuts a trailing dim of `data` cuts the same dim of the result."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.models.act_sharding import from_local, to_local
+    mesh = data.device_mesh
+    data = data.redistribute(mesh, [Replicate() if isinstance(p, Partial) else p
+                                    for p in data.placements])
+    ids = segment_ids
+    if not is_dtensor(ids):
+        ids = on_mesh(ids, data)
+    place = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in data.placements]
+    ids = ids.redistribute(mesh, place)
+    out = fn(to_local(data), ids.to_local(), num_segments)
+    part = [Partial(op) if isinstance(p, Shard) and p.dim == 0 else p for p in data.placements]
+    out = from_local(out, mesh, part, (num_segments,) + tuple(data.shape[1:]))
+    # sums are reduce-scattered onto segment shards as the rows were cut
+    done = Shard(0) if op == "sum" else Replicate()
+    return out.redistribute(mesh, [done if isinstance(p, Partial) else p for p in part])
+
+
 def segment_softmax(logits, segment_ids, num_segments: int):
     """Softmax of `logits` ([E] or [E, H], each column apart) over the
     edges of each segment, with the reference's 1e-9 floor on the sum."""
     m = segment_max(logits, segment_ids, num_segments)
-    z = torch.exp(logits - m[segment_ids])
+    z = torch.exp(logits - rows(m, segment_ids))
     s = segment_sum(z, segment_ids, num_segments)
-    return z / torch.clamp(s[segment_ids], min=1e-9)
+    return z / torch.clamp(rows(s, segment_ids), min=1e-9)
 
 
 def _mlp_params(key, sizes, dtype=F32):
@@ -154,7 +206,7 @@ def mgn_forward(params, node_feat, edge_feat, senders, receivers,
     x = _mlp(node_feat.to(cfg.dtype), params["enc_node"])
     e = _mlp(edge_feat.to(cfg.dtype), params["enc_edge"])
     for blk in params["blocks"]:
-        msg_in = torch.cat([e, x[senders], x[receivers]], dim=-1)
+        msg_in = torch.cat([e, rows(x, senders), rows(x, receivers)], dim=-1)
         e = e + _mlp(msg_in, blk["edge"])
         agg = segment_sum(e, receivers, n)
         x = x + _mlp(torch.cat([x, agg], dim=-1), blk["node"])
@@ -248,7 +300,7 @@ def eqv2_forward(params, species, positions, senders, receivers,
 
     Edge tensors hold the SO(2)-active components only (|m| <= m_max: 29
     of 49 at l_max 6, m_max 2), m-major, so each |m| block is a slice.
-    The receivers' scalar channel is gathered as `x[receivers, 0]` and the
+    The receivers' scalar channel is gathered as `x[:, 0][receivers]` and the
     FFN reads a copy of `x[:, 0]`: the reference's values, without an
     [E, (L+1)^2, C] gather or a saved view that keeps a whole [N, (L+1)^2,
     C] layer alive for the backward."""
@@ -262,35 +314,39 @@ def eqv2_forward(params, species, positions, senders, receivers,
         ranges.append((start, start + len(b)))
         start += len(b)
     scalar = torch.zeros((1,), dtype=torch.int64, device=dev)
-    x = torch.zeros((n, cfg.n_irreps, c), dtype=cfg.dtype, device=dev)
-    x = x.index_copy(1, scalar, _mlp(species.to(cfg.dtype), params["embed"])[:, None])
-    rel = positions[receivers] - positions[senders]
+    x = reshard(on_mesh(torch.zeros((n, cfg.n_irreps, c), dtype=cfg.dtype, device=dev),
+                        species), "batch", None, None)
+    x = on_rows(lambda x, e: x.index_copy(1, scalar, e), x,
+                _mlp(species.to(cfg.dtype), params["embed"])[:, None])
+    rel = rows(positions, receivers) - rows(positions, senders)
     rel = rel + _f32(1e-9, dev)
     dist = torch.sqrt((rel * rel).sum(-1, keepdim=True))
     # the reference's centres are f64 (x64): the RBF is taken in f64 and
     # cast to the model's dtype where the gate reads it
-    rbf = torch.exp(-((dist.double() - rbf_centres(cfg.n_rbf, device=dev)[None]) ** 2))
+    rbf = torch.exp(-((dist.double() - on_mesh(rbf_centres(cfg.n_rbf, device=dev), dist)[None])
+                      ** 2))
     rbf = rbf.to(cfg.dtype)
     heads_root = _f32(cfg.n_heads ** 0.5, dev)
     for layer in params["layers"]:
         # node-side restriction first (N << E), then the edge gather
-        src = x[:, idx_active, :][senders]                     # [E, A, C]
+        src = rows(on_rows(lambda x: x[:, idx_active, :], x), senders)  # [E, A, C]
         # edge-frame gate (rotation stand-in, RBF conditioned; module doc)
         gate = _mlp(rbf, layer["rbf_gate"])                    # [E, I]
-        src = src * gate[:, idx_active, None]
+        src = src * on_rows(lambda g: g[:, idx_active, None], gate)
         # SO(2) per-|m| block-diagonal channel mix (the eSCN O(L^3) kernel)
         e = src.shape[0]
         out = torch.cat([(src[:, lo:hi, :].reshape(e, -1) @ w).reshape(e, hi - lo, c)
                          for (lo, hi), w in zip(ranges, layer["so2"])], dim=1)
         # graph attention over edges (the scalar channel drives the score)
-        qh = x[receivers, 0, :] @ layer["attn_q"]              # [E, H]
+        qh = rows(x[:, 0, :], receivers) @ layer["attn_q"]     # [E, H]
         kh = out[:, 0, :] @ layer["attn_k"]
         logits = (qh * kh).sum(-1) / heads_root
         alpha = segment_softmax(logits.to(F32), receivers, n).to(cfg.dtype)
         agg = segment_sum(out * alpha[:, None, None], receivers, n)  # [N, A, C]
-        x = x.index_add(1, idx_active, agg)
+        x = on_rows(lambda x, a: x.index_add(1, idx_active, a), x, agg)
         # scalar-channel FFN
-        x = x.index_add(1, scalar, _mlp(x[:, 0, :].clone(), layer["ffn"])[:, None])
+        x = on_rows(lambda x, f: x.index_add(1, scalar, f), x,
+                    _mlp(x[:, 0, :].clone(), layer["ffn"])[:, None])
     return _mlp(x[:, 0, :], params["head"])
 
 
@@ -341,9 +397,10 @@ def gat_forward(params, node_feat, senders, receivers, cfg: GATConfig):
         z = (x @ l["w"]).reshape(n, heads, h)
         e_src = (z * l["a_src"][None]).sum(-1)   # [N, H]
         e_dst = (z * l["a_dst"][None]).sum(-1)
-        logits = torch.nn.functional.leaky_relu(e_src[senders] + e_dst[receivers], 0.2)
+        logits = torch.nn.functional.leaky_relu(rows(e_src, senders) + rows(e_dst, receivers),
+                                                0.2)
         alpha = segment_softmax(logits.to(F32), receivers, n)   # per head
-        msg = z[senders] * alpha[..., None].to(cfg.dtype)
+        msg = rows(z, senders) * alpha[..., None].to(cfg.dtype)
         x = segment_sum(msg, receivers, n).reshape(n, heads * h)
         if not last:
             x = torch.nn.functional.elu(x)
@@ -386,10 +443,10 @@ def sage_forward_full(params, node_feat, senders, receivers, cfg: SAGEConfig):
     """Full-graph mean-aggregator forward."""
     n = node_feat.shape[0]
     x = node_feat.to(cfg.dtype)
-    ones = torch.ones((senders.shape[0],), dtype=cfg.dtype, device=x.device)
+    ones = torch.ones_like(senders, dtype=cfg.dtype)
     deg = torch.clamp(segment_sum(ones, receivers, n), min=1.0)
     for i, l in enumerate(params["layers"]):
-        agg = segment_sum(x[senders], receivers, n) / deg[:, None]
+        agg = segment_sum(rows(x, senders), receivers, n) / deg[:, None]
         x = x @ l["w_self"] + agg @ l["w_nbr"]
         if i < len(params["layers"]) - 1:
             x = _l2_normalize(torch.relu(x))

@@ -17,6 +17,19 @@ the identity on plain tensors and without an ambient mesh
 (`launch.mesh.set_mesh`); on DTensors under a mesh it redistributes to the
 logical names' placements.
 
+On DTensors (a plan run by `launch.steps.partition`) the step is one
+rank's share, as the reference's SPMD partition is: FSDP weights are
+gathered over the mesh dims that cut the batch (`gather_fsdp`), the
+residual stream is cut over the batch only, the column-parallel products
+are cut over "tp" and the row-parallel ones reduced back; the query heads
+stay cut over "tp" where the KV heads divide it, else the queries are cut
+along the sequence. Written out on each rank's shards: the vocab-sharded
+embedding (a masked lookup, `row_lookup`) and loss (`_vocab_sharded_nll`),
+causal attention (`_sharded_attention`), decode attention over a cache
+whose length is cut (`_sharded_decode_attention`: local scores, the
+softmax's max and sum and the weighted values all-reduced), and the MoE
+dispatch, which runs on every rank's whole copy of the tokens (`ffn_moe`).
+
 Numerics follow the reference's casts: RMSNorm's f32 statistics cast back
 to the input's dtype, attention scores cast to f32 before the softcap,
 probabilities cast to v's dtype, the unembedding in the activations' dtype
@@ -44,7 +57,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random as jr
-from repro_torch.models.act_sharding import constrain
+from repro_torch.models.act_sharding import (all_reduce, constrain, extent, from_local,
+                                             gather_fsdp, is_dtensor, on_mesh, on_whole,
+                                             reshard, row_lookup, shard_range, spanning,
+                                             to_local)
 
 F32 = torch.float32
 
@@ -235,7 +251,8 @@ def rope(x, positions, theta):
     """x: [B, S, H, D]; positions: [B, S]."""
     d = x.shape[-1]
     half = d // 2
-    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=F32, device=x.device) / half))
+    freqs = 1.0 / (theta ** (on_mesh(torch.arange(0, half, dtype=F32, device=x.device), x)
+                             / half))
     ang = positions[..., None].to(F32) * freqs  # [B, S, half]
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
@@ -280,10 +297,24 @@ def _act(name: str):
     return F.silu if name == "silu" else _gelu
 
 
+def _w(p, name, x):
+    """Weight `name` of `p` for a product with `x` (`gather_fsdp`)."""
+    return gather_fsdp(p[name], x)
+
+
 def ffn_dense(x, p, act):
     a = _act(act)
-    h = a(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    h = a(x @ _w(p, "w_gate", x)) * (x @ _w(p, "w_up", x))
+    return reshard(h @ _w(p, "w_down", h), "batch", *[None] * (h.dim() - 1))
+
+
+def _top_k(logits, m: MoEConfig):
+    """The top-k experts of the router's softmax (ties to the lower index)
+    and their renormalised weights."""
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :m.top_k], top_e[:, :m.top_k]
+    return top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9), top_e
 
 
 def moe_route(xt, router, m: MoEConfig):
@@ -293,10 +324,16 @@ def moe_route(xt, router, m: MoEConfig):
     weights, each (token, k) row's slot in its expert's buffer (rows in
     row-major order), and whether the slot lies below the capacity."""
     t = xt.shape[0]
-    probs = torch.softmax(xt.to(F32) @ router, dim=-1)
-    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_p, top_e = top_p[:, :m.top_k], top_e[:, :m.top_k]
-    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    logits = xt.to(F32) @ router
+    if is_dtensor(logits):
+        # each rank ranks its own tokens' experts (torch 2.11's DTensor
+        # sort has no backward)
+        logits = reshard(logits, "batch", None)
+        top_p, top_e = _top_k(to_local(logits), m)
+        top_p, top_e = (from_local(v, logits.device_mesh, logits.placements, (t, m.top_k))
+                        for v in (top_p, top_e))
+    else:
+        top_p, top_e = _top_k(logits, m)
     cap = max(1, int(t * m.top_k * m.capacity_factor / m.n_experts))
     onehot = F.one_hot(top_e, m.e_padded)                    # [t, k, Ep]
     pos_in_e = (torch.cumsum(onehot.reshape(t * m.top_k, m.e_padded), dim=0)
@@ -305,31 +342,104 @@ def moe_route(xt, router, m: MoEConfig):
     return top_p, top_e, pos, pos < cap, cap
 
 
+def _dispatch(xt, top_e, pos, keep, m: MoEConfig, cap: int):
+    """The expert buffer [Ep, cap, d]: each kept (token, k) row added at
+    its slot, the rows beyond the capacity into a trash row cut off."""
+    e_idx = top_e.reshape(-1)
+    c_idx = torch.where(keep, pos, cap).reshape(-1)          # cap row = trash
+    buf = torch.zeros((m.e_padded, cap + 1, xt.shape[1]), dtype=xt.dtype, device=xt.device)
+    return buf.index_put((e_idx, c_idx), xt.repeat_interleave(m.top_k, dim=0),
+                         accumulate=True)[:, :cap]
+
+
+def _combine(out_buf, top_e, pos, keep, top_p, m: MoEConfig, cap: int):
+    """Each token's experts' outputs weighted by their routing weights
+    (a dropped row reads the zero trash row) -> [t, d]."""
+    e_idx = top_e.reshape(-1)
+    c_idx = torch.where(keep, pos, cap).reshape(-1)
+    ep, _, d = out_buf.shape
+    out_buf = torch.cat([out_buf, out_buf.new_zeros((ep, 1, d))], dim=1)
+    gathered = out_buf[e_idx, c_idx].reshape(top_e.shape[0], m.top_k, d)
+    return torch.sum(gathered * top_p[..., None].to(gathered.dtype), dim=1)
+
+
 def ffn_moe(x, p, cfg: LMConfig):
-    """Capacity-based top-k MoE (GShard-style scatter dispatch)."""
+    """Capacity-based top-k MoE (GShard-style scatter dispatch). Under a
+    mesh the routing reads the batch-sharded tokens, and the dispatch and
+    combine run on every rank's whole copy of the tokens and routes (the
+    capacity slots depend on every token before them: `on_whole`); the
+    expert buffer is then cut over the experts (expert-parallel) or each
+    expert's columns (the rule's tensor-parallel case)."""
     m = cfg.moe
     a = _act(cfg.gated_act)
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
-    top_p, top_e, pos, keep, cap = moe_route(xt, p["router"], m)
-    ep = m.e_padded
-    e_idx = top_e.reshape(-1)
-    c_idx = torch.where(keep, pos, cap).reshape(-1)          # cap row = trash
-    buf = torch.zeros((ep, cap + 1, d), dtype=cfg.dtype, device=x.device)
-    buf = buf.index_put((e_idx, c_idx), xt.repeat_interleave(m.top_k, dim=0),
-                        accumulate=True)[:, :cap]
-    if ep % 16 == 0:  # expert-parallel layout (matches the param rules)
+    top_p, top_e, pos, keep, cap = moe_route(xt, _w(p, "router", xt), m)
+    buf = on_whole(lambda *v: _dispatch(*v, m, cap), xt.to(cfg.dtype), top_e, pos, keep)
+    if m.e_padded % 16 == 0:  # expert-parallel layout (matches the param rules)
         buf = constrain(buf, "expert", None, None)
     h = a(torch.einsum("ecd,edf->ecf", buf, p["we_gate"]))
     h = h * torch.einsum("ecd,edf->ecf", buf, p["we_up"])
     out_buf = torch.einsum("ecf,efd->ecd", h, p["we_down"])  # [E, cap, d]
-    out_buf = torch.cat([out_buf, out_buf.new_zeros((ep, 1, d))], dim=1)
-    gathered = out_buf[e_idx, c_idx].reshape(t, m.top_k, d)
-    yt = torch.sum(gathered * top_p[..., None].to(gathered.dtype), dim=1)
+    yt = on_whole(lambda *v: _combine(*v, m, cap), out_buf, top_e, pos, keep, top_p)
     if m.n_shared:
-        yt = yt + (a(xt @ p["ws_gate"]) * (xt @ p["ws_up"])) @ p["ws_down"]
-    return yt.reshape(b, s, d)
+        sh = (a(xt @ _w(p, "ws_gate", xt)) * (xt @ _w(p, "ws_up", xt)))
+        yt = yt + reshard(sh @ _w(p, "ws_down", sh), "batch", None)
+    return reshard(yt.reshape(b, s, d), "batch", None, None)
+
+
+def _sharded_attention(q, k, v, window, softcap):
+    """Causal attention of DTensors on each rank's shards: q [B, S, NH, D]
+    cut over the batch and over the heads or the sequence; k and v [B, T,
+    NKV, D] placed to match (the same batch and heads, the key sequence
+    whole), the mask built for this rank's query positions. -> placed as q."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    kv_place = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+                for p in q.placements]
+    k, v = (t.redistribute(mesh, kv_place) for t in (k, v))
+    s0, sn = shard_range(q, 1)
+    ql, kl, vl = to_local(q, k), to_local(k, q), to_local(v, q)
+    mask = _causal_mask(sn, kl.shape[1], s0, window, ql.device)[None]
+    return from_local(attention(ql, kl, vl, mask, softcap), mesh, q.placements, tuple(q.shape))
+
+
+def _sharded_decode_attention(q, k, v, kv, cache_len, window, softcap):
+    """Decode attention over DTensor caches [B, T, NKV, D] on this rank's
+    shard of them: the new k and v written where this rank holds position
+    `cache_len`, scores against the local keys only, then the softmax's
+    max and sum and the weighted values all-reduced over the mesh dims
+    that cut the cache length. Each rank keeps its share of the work; the
+    caches are never gathered. -> [B, 1, NH, D] placed as the caches, the
+    length dim whole."""
+    from torch.distributed.tensor import Replicate
+    kc, vc = kv
+    mesh = kc.device_mesh
+    tdims = spanning(kc, 1)
+    place = [Replicate() if i in tdims else p for i, p in enumerate(kc.placements)]
+    shape = tuple(q.shape)
+    q, k, v = (t.redistribute(mesh, place).to_local() for t in (q, k, v))
+    kl, vl = kc.to_local(), vc.to_local()
+    t0, tn = shard_range(kc, 1)
+    pos = int(cache_len.to_local() if is_dtensor(cache_len) else cache_len)
+    if t0 <= pos < t0 + tn:
+        kl[:, pos - t0] = k[:, 0].to(kl.dtype)
+        vl[:, pos - t0] = v[:, 0].to(vl.dtype)
+    b, s, nh, d = q.shape
+    nkv = kl.shape[2]
+    qg = q.reshape(b, s, nkv, nh // nkv, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, kl) / _weak(d ** 0.5, q)
+    scores = _softcap(scores.to(F32), softcap)
+    kj = t0 + torch.arange(tn, device=kl.device)
+    m = kj <= pos
+    if window is not None:
+        m &= kj > pos - window
+    scores = torch.where(m, scores, -1e30)
+    p = torch.exp(scores - all_reduce(scores.amax(-1, keepdim=True), "max", mesh, tdims))
+    probs = (p / all_reduce(p.sum(-1, keepdim=True), "sum", mesh, tdims)).to(vl.dtype)
+    out = all_reduce(torch.einsum("bkgst,btkd->bskgd", probs, vl), "sum", mesh, tdims)
+    return from_local(out.reshape(b, s, nh, d), mesh, place, shape)
 
 
 def layer_fwd(x, p, cfg: LMConfig, positions, kv=None, is_local=False,
@@ -340,22 +450,36 @@ def layer_fwd(x, p, cfg: LMConfig, positions, kv=None, is_local=False,
     b, s, d = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    q = h @ p["wq"]
-    k = h @ p["wk"]
-    v = h @ p["wv"]
+    q = h @ _w(p, "wq", h)
+    k = h @ _w(p, "wk", h)
+    v = h @ _w(p, "wv", h)
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    # under a mesh the head columns stay cut over "tp" where the KV heads
+    # divide it (the reference's constraints); else the queries are cut
+    # along the sequence (whole in decode) and k and v are whole
+    q_spec = ("batch", None, "tp", None)
+    if nkv % extent("tp"):
+        q_spec = ("batch", "seq" if kv is None else None, None, None)
+        q = reshard(q, *q_spec[:2], None)
+        k, v = (reshard(t, "batch", None, None) for t in (k, v))
     q = rope(q.reshape(b, s, nh, hd), positions, cfg.rope_theta)
     k = rope(k.reshape(b, s, nkv, hd), positions, cfg.rope_theta)
     v = v.reshape(b, s, nkv, hd)
     window = cfg.sliding_window if is_local else None
     if kv is None:
-        q = constrain(q, "batch", None, "tp", None)
+        q = constrain(q, *q_spec)
         k = constrain(k, "batch", None, None, None)
-        mask = _causal_mask(s, s, 0, window, x.device)[None]
-        out = attention(q, k, v, mask, cfg.attn_softcap)
-        out = constrain(out, "batch", None, "tp", None)
+        if is_dtensor(q):
+            out = _sharded_attention(q, k, v, window, cfg.attn_softcap)
+        else:
+            mask = _causal_mask(s, s, 0, window, x.device)[None]
+            out = attention(q, k, v, mask, cfg.attn_softcap)
+        out = constrain(out, *q_spec)
         new_kv = (k, v)
+    elif is_dtensor(kv[0]):
+        out = _sharded_decode_attention(q, k, v, kv, cache_len, window, cfg.attn_softcap)
+        new_kv = kv
     else:
         kc, vc = kv
         t = kc.shape[1]
@@ -368,7 +492,10 @@ def layer_fwd(x, p, cfg: LMConfig, positions, kv=None, is_local=False,
         mask = torch.broadcast_to(m, (b, t))[:, None, :]     # [B, S=1, T]
         out = attention(q, kc, vc, mask, cfg.attn_softcap)
         new_kv = (kc, vc)
-    x = x + (out.reshape(b, s, nh * hd) @ p["wo"]).to(x.dtype)
+    # the row-parallel output projection: heads cut over "tp", the partial
+    # sums reduced back onto the residual stream's placements
+    out = reshard(out.reshape(b, s, nh * hd), "batch", None, "tp")
+    x = x + reshard((out @ _w(p, "wo", out)).to(x.dtype), "batch", None, None)
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if cfg.moe:
         y = ffn_moe(h, p, cfg)
@@ -413,7 +540,11 @@ def _groups(params, cfg: LMConfig):
 
 
 def _embed(params, tokens, cfg: LMConfig):
-    x = params["embed"][tokens].to(cfg.dtype)
+    if is_dtensor(params["embed"]):
+        # the vocab-sharded table: a masked lookup of each rank's rows
+        x = reshard(row_lookup(params["embed"], tokens).to(cfg.dtype), "batch", None, None)
+    else:
+        x = params["embed"][tokens].to(cfg.dtype)
     if cfg.tie_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype,
                              device=x.device)  # gemma-style scale
@@ -422,7 +553,7 @@ def _embed(params, tokens, cfg: LMConfig):
 
 def _unembed(params, x, cfg: LMConfig):
     unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    logits = (x @ unembed.to(x.dtype)).to(F32)
+    logits = (x @ gather_fsdp(unembed, x).to(x.dtype)).to(F32)
     # vocab-sharded logits: [B, S, V] from forward, [B, V] from prefill
     logits = constrain(logits, "batch", *[None] * (logits.dim() - 2), "tp")
     return _softcap(logits, cfg.final_softcap)
@@ -438,7 +569,7 @@ def forward(params, tokens, cfg: LMConfig):
     """tokens [B, S] -> logits [B, S, V] f32 (training / prefill, causal)."""
     b, s = tokens.shape
     x = _embed(params, tokens, cfg)
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    positions = on_mesh(torch.arange(s, device=x.device)[None].expand(b, s), x)
     remat = cfg.remat and torch.is_grad_enabled()
     for group in _groups(params, cfg):
         body = functools.partial(_body, group=group, cfg=cfg, positions=positions)
@@ -454,7 +585,7 @@ def prefill(params, tokens, cfg: LMConfig):
     logits are computed against the vocabulary."""
     b, s = tokens.shape
     x = _embed(params, tokens, cfg)
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    positions = on_mesh(torch.arange(s, device=x.device)[None].expand(b, s), x)
     ks, vs = [], []
     for group in _groups(params, cfg):
         for p, is_local in group:
@@ -479,7 +610,7 @@ def decode_step(params, token, cache, cache_len, cfg: LMConfig):
     is an int or a 0-d tensor."""
     b = token.shape[0]
     x = _embed(params, token, cfg)
-    positions = torch.full((b, 1), 0, dtype=torch.int64, device=x.device) + cache_len
+    positions = on_mesh(torch.full((b, 1), 0, dtype=torch.int64, device=x.device), x) + cache_len
     li = 0
     for group in _groups(params, cfg):
         for p, is_local in group:
@@ -493,9 +624,37 @@ def decode_step(params, token, cache, cache_len, cfg: LMConfig):
 # ----------------------------------------------------------------- training
 
 
+def _vocab_sharded_nll(logits, targets):
+    """-log softmax(logits)[target] of DTensor logits whose vocab dim is
+    sharded, without gathering them: each rank takes its vocab slice's max
+    (all-reduced by max), its sum of exps and the targets its slice holds;
+    the sums are partial over the vocab's mesh dims. The gradient reaches
+    the logits on their own placements."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = logits.device_mesh
+    vocab = spanning(logits, -1)
+    place = [p if isinstance(p, Shard) and p.dim < targets.dim() else Replicate()
+             for p in logits.placements]
+    part = [Partial() if i in vocab else p for i, p in enumerate(place)]
+    shape = tuple(logits.shape[:-1])
+    ll = to_local(logits)
+    z = ll - all_reduce(ll.detach().amax(-1, keepdim=True), "max", mesh, vocab)
+    sumexp = from_local(torch.exp(z).sum(-1), mesh, part, shape)
+    targets = targets.redistribute(mesh, place).to_local()
+    v0, n_v = shard_range(logits, -1)
+    mine = (targets >= v0) & (targets < v0 + n_v)
+    pick = torch.gather(z, -1, torch.where(mine, targets - v0, 0)[..., None])[..., 0]
+    pick = from_local(pick * mine.to(z.dtype), mesh, part, shape)
+    # both sums reduced before they meet (torch 2.11's DTensor sends a
+    # whole operand's gradient wrongly through a partial-sum difference)
+    return torch.log(sumexp.redistribute(mesh, place)) - pick.redistribute(mesh, place)
+
+
 def lm_loss(params, tokens, cfg: LMConfig):
     logits = forward(params, tokens[:, :-1], cfg)
     targets = tokens[:, 1:].long()
+    if is_dtensor(logits):
+        return _vocab_sharded_nll(logits, targets).mean()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     return nll.mean()

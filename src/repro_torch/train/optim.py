@@ -44,9 +44,36 @@ def adamw_init(params) -> AdamWState:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares over every leaf, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(F32)))
-                          for x in tree_leaves(tree)))
+    """sqrt of the sum of squares over every leaf, in f32. Leaves that are
+    DTensors (a partitioned step's gradients, placed as their parameters)
+    are summed on their shards (`_sharded_sum_of_squares`)."""
+    from torch.distributed.tensor import DTensor
+    leaves = tree_leaves(tree)
+    if any(isinstance(x, DTensor) for x in leaves):
+        return torch.sqrt(_sharded_sum_of_squares(leaves))
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(F32))) for x in leaves))
+
+
+def _sharded_sum_of_squares(leaves) -> torch.Tensor:
+    """The sum of squares of DTensor leaves without gathering one: each
+    rank sums the squares of its shards, a leaf replicated over a mesh dim
+    counted on that dim's first rank only, then one all-reduce over every
+    rank of the mesh (a plain tensor, the same on every rank)."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Partial, Shard
+    mesh = next(x.device_mesh for x in leaves if hasattr(x, "device_mesh"))
+    if mesh.size() != dist.get_world_size():
+        raise ValueError("the gradients' mesh must span every rank")
+    coord = mesh.get_coordinate()
+    total = torch.zeros((), dtype=F32, device=leaves[0].to_local().device)
+    for x in leaves:
+        if any(isinstance(p, Partial) for p in x.placements):
+            raise ValueError(f"unreduced gradient: {x.placements}")
+        if any(c and not isinstance(p, Shard) for c, p in zip(coord, x.placements)):
+            continue
+        total = total + torch.sum(torch.square(x.to_local().to(F32)))
+    return funcol.wait_tensor(funcol.all_reduce(total, "sum", dist.group.WORLD))
 
 
 def _adamw_math(grads, state: AdamWState, cfg: AdamWConfig):
@@ -70,8 +97,23 @@ def _adamw_math(grads, state: AdamWState, cfg: AdamWConfig):
     return gnorm, step, upd
 
 
+def placed_as(grads, params):
+    """Each DTensor gradient redistributed to its parameter's placements
+    (the partial sums of a sharded step reduced, reduce-scattered onto the
+    FSDP shards); plain gradients unchanged."""
+    from torch.distributed.tensor import DTensor
+
+    def place(g, p):
+        if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+            return g.redistribute(p.device_mesh, p.placements)
+        return g
+    return tree_map(place, grads, params)
+
+
 def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
-    """One AdamW step with global-norm clipping -> (params, state, gnorm)."""
+    """One AdamW step with global-norm clipping -> (params, state, gnorm).
+    On DTensors each leaf's update runs on its shards."""
+    grads = placed_as(grads, params)
     gnorm, step, upd = _adamw_math(grads, state, cfg)
     g, m, v, p = (leaf_paths(t) for t in (grads, state.m, state.v, params))
     out = {k: upd(g[k], m[k], v[k], p[k]) for k in g}
@@ -86,6 +128,7 @@ def adamw_update_(grads, state: AdamWState, params, cfg: AdamWConfig):
     state, gnorm), the same values bit for bit. It holds one leaf's
     temporaries where `adamw_update` holds a second copy of the parameters
     and moments beside the first (26 GB at gemma2-2b's full width)."""
+    grads = placed_as(grads, params)
     gnorm, step, upd = _adamw_math(grads, state, cfg)
     g, m, v, p = (leaf_paths(t) for t in (grads, state.m, state.v, params))
     for k in g:

@@ -978,3 +978,28 @@ def test_dryrun_of_a_wharf_cell_on_the_card(dev):
     assert rec["card"] == torch.cuda.get_device_name(0)
     meta = dryrun.run_cell("gemma2-2b", "train_4k", verbose=False)
     assert meta["device"] == "meta" and meta["launches"] is None
+
+
+def test_partitioned_steps_on_the_card(dev, tmp_path):
+    """launch/partitioned.py on the card, as chip_smoke's 11d-b at the
+    smoke configs: four gloo ranks sharing the card on a (2, 2) mesh run
+    gemma2-2b's train step (f32, one KV head: the queries cut along the
+    sequence, so Shard -> Shard moves) and dlrm-rm2's serve step; every
+    rank's output shards within tolerance of the unsharded step on the
+    card, its collectives = the meta count (the all-gathers and moves
+    through `collectives.gloo_routes`), no kernel launched."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import partitioned
+
+    def smoke(arch, **kw):
+        return dataclasses.replace(get_arch(arch).make_config(True), **kw)
+    cells = [dict(arch="gemma2-2b", shape="train_4k",
+                  info={"kind": "train", "seq_len": 16, "global_batch": 4},
+                  config=smoke("gemma2-2b", n_kv_heads=1)),
+             dict(arch="dlrm-rm2", shape="serve_p99", info={"kind": "serve", "batch": 8},
+                  config=smoke("dlrm-rm2"))]
+    for r in partitioned.check(cells, device=dev, workdir=str(tmp_path)):
+        assert partitioned.passed(r), r
+        assert all(not any(rank["launches"].values()) for rank in r["ranks"])

@@ -35,7 +35,7 @@ def test_meta_cell_record():
 
 def test_cli_records_cells(tmp_path):
     out = tmp_path / "dry.json"
-    assert dryrun.main(["--arch", "dlrm-rm2", "--out", str(out)]) == 0
+    assert dryrun.main(["--arch", "dlrm-rm2", "--mesh", "1", "--out", str(out)]) == 0
     recs = json.loads(out.read_text())
     assert sorted(recs) == [f"dlrm-rm2|{s}|full" for s in
                             ("retrieval_cand", "serve_bulk", "serve_p99", "train_batch")]
