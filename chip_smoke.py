@@ -135,7 +135,7 @@ every phase passed):
      the trained weights (prefill of 4,096, 64 decode steps past the local
      window) against one forward over the 4,160 tokens; in f32 at depth 2
      decode = forward within 2e-3 and card = CPU within 1e-4. 9c:
-     qwen2-moe-a2.7b at full width (16 of its 24 layers) in bf16, prefill
+     qwen2-moe-a2.7b at full width (8 of its 24 layers) in bf16, prefill
      of 2,048 (the rows each MoE layer drops) and 16 decode steps; f32 card
      = CPU at depth 1 with the routing exact. 9d: dlrm-rm2 at full width:
      serve_p99, serve_bulk, retrieval_cand and one train_batch step, card
@@ -194,9 +194,11 @@ True)` on the card: its state equals the plain run's, its counters equal
 the CPU's, and the metrics-OFF run calls the plain step loop's kernels;
 it prints the exported summary. Each phase prints one JSON line.
 """
+import bisect
 import contextlib
 import dataclasses
 import inspect
+import itertools
 import json
 import os
 import shutil
@@ -376,7 +378,7 @@ LM = dict(small=dict(batch=2, seq=16, steps=4),
           gemma=dict(arch="gemma2-2b", batch=1, seq=4096, steps=3, decode=64,
                      f32_layers=2, cpu_tokens=256),
           qwen=dict(arch="qwen2-moe-a2.7b", prefill=2048, decode=16, f32_layers=1,
-                    cpu_tokens=512, over=dict(n_layers=16)),
+                    cpu_tokens=512, over=dict(n_layers=8)),
           dlrm=dict(arch="dlrm-rm2", serve_p99=512, serve_bulk=262_144, retrieval=1_000_000,
                     train=65_536, reps=5),
           seeds=dict(tokens=9090, dlrm=9091))
@@ -390,9 +392,9 @@ LM_REDUCED = dict(
     long_500k="not run (decode at 524,288 positions: a 55 GB cache at B = 1)",
     gemma_f32="depth 26 -> 2 for the f32 checks; card = CPU over the first 256 "
               "tokens (the CPU's time; the card's decode = forward runs the 4,160)",
-    qwen_depth="qwen2-moe-a2.7b 24 -> 16 layers (10,304,915,456 stored parameters, "
-               "20.6 GB): its init draws 202M normals/s on an H100, 75 s at full "
-               "depth, over its share of the phase's time",
+    qwen_depth="qwen2-moe-a2.7b 24 -> 8 layers: its init draws 200M normals/s on an "
+               "H100, 75 s at full depth and 51.5 s at 16 layers (10,304,915,456 "
+               "stored parameters), over its share of the run's time limit",
     qwen_prefill="qwen2-moe-a2.7b serves 1 x 2,048 tokens and 16 decode steps; "
                  "f32 card = CPU at depth 1 over 512 tokens",
     mistral_qwen110_llama4="not run at full width: 9a only (smoke configs); "
@@ -1445,35 +1447,44 @@ def profile_batch(run, kernel: str = None, layer: str = None):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans, kerns = {}, []   # layer -> device spans; (start, end, name) a kernel
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        if e.name.startswith(LAYERS):
-            spans.setdefault(e.name, []).append((e.time_range.start, e.time_range.end))
-        else:
-            kerns.append((e.time_range.start, e.time_range.end, e.name))
+    # the profiler's raw records: `prof.events()` and `key_averages()` build
+    # a Python tree of every host operator first (~100 s for one batch)
+    spans, kerns, layers_host = {}, [], {}   # kerns: (start, end, name), us
+    for e in prof.profiler.kineto_results.events():
+        name, where = e.name(), e.device_type()
+        if where == DeviceType.CUDA:
+            if name.startswith(LAYERS):
+                spans.setdefault(name, []).append((e.start_ns() / 1e3, e.end_ns() / 1e3))
+            else:
+                kerns.append((e.start_ns() / 1e3, e.end_ns() / 1e3, name))
+        elif where == DeviceType.CPU and name.startswith(LAYERS):
+            layers_host[name] = layers_host.get(name, 0.0) + (e.end_ns() - e.start_ns()) / 1e6
     busy_ms = sum(t - s for s, t, _ in kerns) / 1e3
     if not busy_ms:
         return dict(wall_ms=wall * 1e3, device_busy="not measured")
 
     def inside(name, span_list):
-        return sum(t - s for s, t, n in kerns if name in n
-                   and any(a <= s and t <= b for a, b in span_list)) / 1e3
+        # a kernel is inside a span if a span that starts before it ends
+        # after it: the spans by start, with the running latest end
+        span_list = sorted(span_list)
+        starts = [a for a, _ in span_list]
+        ends = list(itertools.accumulate((b for _, b in span_list), max))
+        total = 0.0
+        for s, t, n in kerns:
+            i = bisect.bisect_right(starts, s)
+            if name in n and i and ends[i - 1] >= t:
+                total += t - s
+        return total / 1e3
 
     layers = {name: inside("", sp) for name, sp in spans.items()}
-    layers_host = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name.startswith(LAYERS):
-            layers_host[e.name] = layers_host.get(e.name, 0.0) + e.cpu_time_total / 1e3
-    top = sorted((e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and not e.key.startswith(LAYERS)),
-                 key=lambda e: -e.self_device_time_total)[:8]
+    by_name = {}
+    for s, t, n in kerns:
+        by_name[n] = by_name.get(n, 0.0) + (t - s)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
                device_idle_share=1 - busy_ms / (wall * 1e3),
                layer_kernel_ms=layers, layer_host_ms=layers_host,
-               top_kernels_ms={e.key[:100]: e.self_device_time_total / 1e3
-                               for e in top})
+               top_kernels_ms={n[:100]: us / 1e3 for n, us in top})
     if kernel:
         k_ms = sum(t - s for s, t, n in kerns if kernel in n) / 1e3
         out[kernel] = dict(device_ms=k_ms, share_of_busy=k_ms / busy_ms)
