@@ -187,6 +187,17 @@ every phase passed):
      on the card, its collectives = the meta count of the same (2, 2)
      plan, no kernel launched (the counts set to 0 before and read 0
      after); ms a step (under the work counter) and each rank's peak GB.
+     11e, the wharf cells on a mesh (launch/lockstep.py): the ranks of
+     the explicit partition (distr/sharded.py) run as lockstep threads
+     sharing the card. 11e-a: 8 ranks on a (2, 4) mesh at 2^16 vertices
+     run stream_10k_sharded (1 batch), stream_10k_mixed (2 batches) and
+     stream_10k; each cell's rows, unsharded, equal the one-card plan's
+     outputs on the same inputs bit for bit, and kernels 1 and 2 launch
+     on every rank (printed a rank), and rank 0's collectives equal the
+     static count (one MIN all_reduce of the int64 [n_walks] keys and
+     `length` all_to_alls of S x slab x 8 bytes a batch). 11e-b, the
+     16 x 16 count, runs as the dry-run CLI (`--include-wharf --mesh
+     single`; README): 256 lockstep ranks take ~170 s for one batch.
      The cuts are printed as `reduced_plans`.
 Phase 2 also runs a small maintainer on the card against the CPU and
 against a plain engine, and the order-1 stream with `WalkConfig(metrics=
@@ -239,7 +250,8 @@ from repro_torch.distr.sharded import (consolidate, local_shard_state,  # noqa: 
 from repro_torch.downstream import EmbeddingMaintainer, MaintainerConfig  # noqa: E402
 from repro_torch.kernels import _build, delta, intersect, megakernel, ops  # noqa: E402
 from repro_torch.kernels import range_search, sgns, szudzik  # noqa: E402
-from repro_torch.launch import dryrun, op_analysis, partitioned, profile_cell, steps  # noqa: E402
+from repro_torch.launch import (dryrun, lockstep, op_analysis, partitioned,  # noqa: E402
+                                profile_cell, steps)
 from repro_torch.launch import mesh as card_mesh  # noqa: E402
 from repro_torch.launch import train as launch  # noqa: E402
 from repro_torch.models import dlrm, gnn, sampling  # noqa: E402
@@ -483,6 +495,23 @@ PARTITION_REDUCED = dict(
     decode_32k="128 -> 4 sequences of a 32,768-position cache in 11d-b",
     cells="6 of the 40 LM, GNN and recsys cells in 11d-a (the dry-run CLI sweeps all 40 "
           "on both meshes: `--mesh both`)")
+# phase 11e: the wharf cells on a mesh, their ranks lockstep threads on the
+# card: 8 ranks on a (2, 4) mesh against the one-card plans (11e-a; the 16
+# x 16 count, 11e-b, is a dry-run CLI run of its own)
+MESH = dict(seed=2424, mean_degree=100, small_mesh=(2, 4), small_log2_n=16,
+            small_rewalk_capacity=1 << 13, small_max_pending=2,
+            small_cells={"stream_10k_sharded": 1, "stream_10k_mixed": 2, "stream_10k": 0})
+MESH_REDUCED = dict(
+    small="11e-a: 2^16 vertices (config: 2^20), edge capacity 2^23, rewalk_capacity 2^13 "
+          "(below the 655,360 walks: a batch drops the affected walks beyond it without a "
+          "flag, as the reference's _rewalk, on the ranks and the one card alike; a rank's "
+          "rewalk step is host-bound there, the run's time limit), "
+          "max_pending 2 (8), 1 and 2 of 8 batches in stream_10k_sharded and "
+          "stream_10k_mixed",
+    full="11e-b, the 16 x 16 count, is a dry-run CLI run (README, PERF.md section 5): "
+         "256 lockstep ranks of stream_10k_sharded took 170 s on the card for 1 batch at "
+         "2^14 vertices, past the phase's share of the run's time limit",
+    order2="the order-2 cells stay counted on one card: the explicit engine is order 1 only")
 PLAN_KERNELS = ("szudzik_pair", "szudzik_unpair", "delta_decode", "find_next_packed",
                 "intersect_csr", "fused_rewalk_step")
 
@@ -3833,6 +3862,87 @@ def phase_partitioned_run(dev, workdir) -> dict:
     return out
 
 
+def mesh_outputs_equal(shape: str, plan, args, run, want, cfg) -> None:
+    """11e-a: the lockstep ranks' rows of a wharf cell, unsharded, = the
+    one-card plan's outputs `want`, bit for bit (and every rank's affected
+    counts = the one card's)."""
+    graph, store, overflow = steps.unshard_rows(args[0], cfg)
+    assert not overflow, f"{shape}: a shard overflowed"
+    if plan.step_name == "walk_update_step":
+        got = {"store": store}
+        want = {"store": want}
+    elif plan.step_name == "walk_stream_step":
+        got = {"graph": graph, "store": store}
+        want = {"graph": want[0], "store": want[1], "affected": want[2]}
+        for r, out in enumerate(run.outputs):
+            assert torch.equal(out[2][0], want["affected"]), (shape, r)
+        want.pop("affected")
+    else:
+        w_graph, w_store, _ = steps.unshard_rows(want[0], cfg)
+        got = {"graph": graph, "store": store}
+        want = {"graph": w_graph, "store": w_store, "affected": want[1][0]}
+        for r, out in enumerate(run.outputs):
+            assert torch.equal(out[1][0], want["affected"]), (shape, r)
+        want.pop("affected")
+    g, w = ttree.leaf_paths(got), ttree.leaf_paths(want)
+    assert g.keys() == w.keys(), (shape, sorted(g.keys() ^ w.keys()))
+    for k, v in w.items():
+        assert torch.equal(g[k], v), f"{shape}: {k}: lockstep ranks != one card"
+
+
+def ranks_launched(shape: str, launches: list) -> list:
+    """Each rank's kernel-1 and kernel-2 launches, every one > 0."""
+    out = [[r["szudzik_pair"], r["szudzik_unpair"]] for r in launches]
+    bad = [i for i, (a, b) in enumerate(out) if not (a and b)]
+    assert not bad, f"{shape}: ranks {bad} launched no kernel 1 or 2: {out}"
+    return out
+
+
+def phase_mesh_small(dev) -> dict:
+    """11e-a (MESH): 8 lockstep ranks on a (2, 4) mesh against the one-card
+    plans on the same inputs drawn on the card."""
+    cfg = dryrun.wharf_config(MESH["small_log2_n"], MESH["small_max_pending"],
+                              MESH["small_rewalk_capacity"])
+    n_ranks = MESH["small_mesh"][0] * MESH["small_mesh"][1]
+    cells, total = {}, dict.fromkeys(ops.KERNELS, 0)
+    with card_mesh.fake_mesh(MESH["small_mesh"], ("data", "model")) as mesh:
+        for shape, nb in MESH["small_cells"].items():
+            info = dryrun.cut_info(shape, nb)
+            plan = steps.build_cell("wharf-stream", shape, mesh=mesh, config=cfg, info=info)
+            one = steps.build_cell("wharf-stream", shape, config=cfg, info=info)
+            start = dict(ops.launches)
+            args, setup, oargs = dryrun.wharf_mesh_inputs(plan, cfg, MESH["seed"], dev,
+                                                          MESH["mean_degree"], one_card=one)
+            before = dict(ops.launches)
+            run = lockstep.run(lambda r, _: plan.fn(*args), n_ranks, device=dev, setup=setup,
+                               counted=0)
+            torch.cuda.synchronize()
+            for k in ops.KERNELS:
+                assert ops.launches[k] - before[k] == sum(
+                    r[k] + u[k] for r, u in zip(run.launches, run.setup_launches)), k
+            if one.step_name == "walk_stream_sharded_step":
+                want = lockstep.run(lambda r, _: one.fn(*oargs), 1, device=dev,
+                                    counted=None).outputs[0]
+            else:
+                with torch.no_grad():
+                    want = one.fn(*oargs)
+            mesh_outputs_equal(shape, plan, args, run, want, cfg)
+            for k in ops.KERNELS:   # the inputs', the one card's and the check's too
+                total[k] += ops.launches[k] - start[k]
+            tot = run.totals
+            static = dryrun.static_collectives(plan, cfg, info, n_ranks)
+            assert {k: (tot.coll_counts[k], tot.coll_bytes[k]) for k in tot.coll_counts
+                    if tot.coll_counts[k]} == static, (shape, tot.coll_counts, static)
+            cells[shape] = dict(
+                n_ranks=n_ranks, n_batches=info.get("n_batches"), run_s=run.seconds,
+                equal=True, launches_pair_unpair_by_rank=ranks_launched(shape, run.launches),
+                rank0_collectives={k: [tot.coll_counts[k], tot.coll_bytes[k]]
+                                   for k in tot.coll_counts if tot.coll_counts[k]})
+            del args, oargs, want, run
+            torch.cuda.empty_cache()
+    return dict(cells=cells, launches=total)
+
+
 def phase_plans(dev, workdir, part_meta) -> dict:
     """Phase 11 (11a, 11b, 11c, 11d), its kernel launches summed; 11b's
     meta cells are counted by a process of its own while 11a runs, 11d-a's
@@ -3848,15 +3958,21 @@ def phase_plans(dev, workdir, part_meta) -> dict:
         log("profile_cell", ok=True, **c)
         log("partitioned_meta", ok=True, **phase_partitioned_meta(part_meta, b["cells"]))
         log("partitioned_run", ok=True, **phase_partitioned_run(dev, workdir))
+        ops.reset_launches()    # ---- 11e's path, counted from here
+        e_a = phase_mesh_small(dev)
+        mesh_launches = dict(ops.launches)   # ---- read just after
+        assert mesh_launches == e_a["launches"], (mesh_launches, e_a["launches"])
+        log("wharf_mesh", ok=True, **e_a)
     finally:
         for proc, _, _ in (meta, part_meta):
             if proc.poll() is None:
                 proc.kill()
             proc.wait()
         shutil.rmtree(workdir, ignore_errors=True)
-    log("reduced_plans", **PLANS_REDUCED, **PARTITION_REDUCED)
+    log("reduced_plans", **PLANS_REDUCED, **PARTITION_REDUCED, mesh=MESH_REDUCED)
     return dict(launches={k: a["launches"][k] + b["launches"][k] + c["launches"][k]
-                          for k in ops.KERNELS})
+                          for k in ops.KERNELS},
+                mesh_launches=mesh_launches)
 
 
 def main() -> int:
@@ -3928,7 +4044,8 @@ def main() -> int:
     # sharded engine's four ranks (phase 7b), the launcher's
     # downstream trainer (phase 8b), the LM family and DLRM (phase 9,
     # none), the GNN family: the walk-based sampler over phase 3's
-    # store and phase 10 (none), and the cell plans (phase 11)
+    # store and phase 10 (none), the cell plans (phase 11a-11d) and the
+    # wharf cells on a mesh (11e)
     for r in kernels:
         by_path = {"order1": full["launches"][r["name"]],
                    "maintainer": maint["launches"][r["name"]],
@@ -3939,7 +4056,8 @@ def main() -> int:
                    "trainer": trainer["launches"][r["name"]],
                    "lm": lm["launches"][r["name"]],
                    "gnn": gnn_path["launches"][r["name"]] + gnn_full["launches"][r["name"]],
-                   "plans": plans["launches"][r["name"]]}
+                   "plans": plans["launches"][r["name"]],
+                   "mesh": plans["mesh_launches"][r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         if r["name"] in OFF_MAIN_PATH:

@@ -30,10 +30,20 @@ functional collective of CUDA tensors runs as the synchronous
 chunks along the new shard dim, concatenated along the old one), which
 returns only when gloo has written its output. A work counter above
 (`op_analysis`) still sees, and counts, the functional op.
+
+Ranks as threads: an `InProcessGroup` (`launch/lockstep.py`) holds S ranks
+that are threads of this process. A thread bound to one (`bind`) takes
+its collectives from it, and `shard_group` of `distr/sharded.py` returns
+it: no `torch.distributed` group is needed then. The observer is the
+calling thread's, and a counter is suspended while a collective runs, so
+the copies a collective makes for its ranks (on whichever thread makes
+them) are counted as its one record, not as the thread's ops. `calls` and
+`seconds` are the process's totals.
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 
 import torch
@@ -44,14 +54,37 @@ NAMES = ("all_reduce", "all_to_all")
 calls = dict.fromkeys(NAMES, 0)
 seconds = dict.fromkeys(NAMES, 0.0)
 _timing = False
-_observer = None
+_lock = threading.Lock()
+# this thread's observer and in-process group
+_tls = threading.local()
 KINDS = {"all_reduce": "all-reduce", "all_to_all": "all-to-all"}
 
 
+class InProcessGroup:
+    """A group whose ranks are threads of this process: the two
+    collectives of the sharded engine on the calling thread's rank."""
+
+    def rank(self) -> int:
+        raise NotImplementedError
+
+    def size(self) -> int:
+        raise NotImplementedError
+
+    def all_reduce_min(self, t: torch.Tensor) -> None:
+        """Element-wise min over the ranks, into `t` in place."""
+        raise NotImplementedError
+
+    def all_to_all(self, send: torch.Tensor) -> torch.Tensor:
+        """Row block r of `send` to rank r; the blocks received, in rank
+        order."""
+        raise NotImplementedError
+
+
 def reset() -> None:
-    for name in NAMES:
-        calls[name] = 0
-        seconds[name] = 0.0
+    with _lock:
+        for name in NAMES:
+            calls[name] = 0
+            seconds[name] = 0.0
 
 
 def set_timing(on: bool) -> None:
@@ -61,34 +94,69 @@ def set_timing(on: bool) -> None:
 
 @contextlib.contextmanager
 def observe(observer):
-    """Within the block, each collective calls
-    `observer.collective(kind, output bytes)`."""
-    global _observer
-    saved, _observer = _observer, observer
+    """Within the block, each collective this thread makes calls
+    `observer.collective(kind, output bytes)`, and runs inside
+    `observer.suspended()`."""
+    saved, _tls.observer = getattr(_tls, "observer", None), observer
     try:
         yield observer
     finally:
-        _observer = saved
+        _tls.observer = saved
+
+
+@contextlib.contextmanager
+def bind(group: InProcessGroup):
+    """Within the block this thread's collectives run on `group`."""
+    saved, _tls.group = getattr(_tls, "group", None), group
+    try:
+        yield group
+    finally:
+        _tls.group = saved
+
+
+def bound_group():
+    """The in-process group this thread is bound to, or None."""
+    return getattr(_tls, "group", None)
+
+
+def group_rank(group=None) -> int:
+    """This thread's rank in `group` (default: the bound in-process group,
+    else the default process group)."""
+    group = bound_group() if group is None else group
+    return group.rank() if isinstance(group, InProcessGroup) else dist.get_rank(group)
+
+
+def group_size(group=None) -> int:
+    group = bound_group() if group is None else group
+    return group.size() if isinstance(group, InProcessGroup) else dist.get_world_size(group)
 
 
 def _run(name: str, t: torch.Tensor, fn):
+    observer = getattr(_tls, "observer", None)
     if _timing and t.is_cuda:
         torch.cuda.synchronize(t.device)
     t0 = time.perf_counter()
-    out = fn()
+    with (observer.suspended() if observer is not None else contextlib.nullcontext()):
+        out = fn()
     if _timing and t.is_cuda:
         torch.cuda.synchronize(t.device)
-    seconds[name] += time.perf_counter() - t0
-    calls[name] += 1
-    if _observer is not None:
-        _observer.collective(KINDS[name], out.numel() * out.element_size())
+    with _lock:
+        seconds[name] += time.perf_counter() - t0
+        calls[name] += 1
+    if observer is not None:
+        observer.collective(KINDS[name], out.numel() * out.element_size())
     return out
 
 
 def all_reduce_min(t: torch.Tensor, group=None) -> torch.Tensor:
     """Element-wise min of `t` over the group's ranks, in place."""
+    group = bound_group() if group is None else group
+
     def fn():
-        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+        if isinstance(group, InProcessGroup):
+            group.all_reduce_min(t)
+        else:
+            dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
         return t
     return _run("all_reduce", t, fn)
 
@@ -97,7 +165,11 @@ def all_to_all(send: torch.Tensor, group=None) -> torch.Tensor:
     """One `all_to_all_single` of equal splits: row block r of `send`
     (dim 0 cut into world-size blocks) goes to rank r; returns the blocks
     received, in rank order."""
+    group = bound_group() if group is None else group
+
     def fn():
+        if isinstance(group, InProcessGroup):
+            return group.all_to_all(send)
         recv = torch.empty_like(send)
         dist.all_to_all_single(recv, send, group=group)
         return recv

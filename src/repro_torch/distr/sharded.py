@@ -1,8 +1,9 @@
 """Explicitly partitioned walk engine on `torch.distributed` (port of
 `repro/distr/sharded.py`).
 
-One process a shard, rank = shard index; each rank holds and passes its
-OWN shard state (a `core.update.EngineState`). The state is partitioned
+One process a shard, rank = shard index (or one thread a shard, the ranks
+of an in-process group run in lockstep: `launch/lockstep.py`); each rank
+holds and passes its OWN shard state (a `core.update.EngineState`). The state is partitioned
 BY VERTEX RANGE (shard k of S owns vertices [k*vps, (k+1)*vps)):
   * graph edge codes: the sorted codes whose SOURCE the shard owns
     (per-shard capacity, SENTINEL-padded); the CSR offsets span the global
@@ -100,13 +101,17 @@ class ShardSpec:
 
 
 def shard_group(n_shards: int, group=None):
-    """The process group of an `n_shards` run (default: the whole world),
-    checked to hold one rank a shard."""
-    if not dist.is_initialized():
-        raise RuntimeError("the sharded engine needs torch.distributed "
-                           "initialized: one process a shard")
-    group = dist.group.WORLD if group is None else group
-    size = dist.get_world_size(group)
+    """The group of an `n_shards` run, checked to hold one rank a shard:
+    `group`, else the in-process group this thread is bound to (ranks as
+    threads, `launch/lockstep.py`), else the whole world."""
+    group = collectives.bound_group() if group is None else group
+    if group is None:
+        if not dist.is_initialized():
+            raise RuntimeError("the sharded engine needs torch.distributed "
+                               "initialized (one process a shard) or an "
+                               "in-process group (one thread a shard)")
+        group = dist.group.WORLD
+    size = collectives.group_size(group)
     if size != n_shards:
         raise ValueError(f"{n_shards} shards need {n_shards} ranks, the "
                          f"group has {size}")
@@ -424,7 +429,7 @@ def sharded_run_stream(state: EngineState, key, ins_src, ins_dst,
             "sharded run_stream is order-1 (DeepWalk) only: order-2 "
             "SAMPLENEXT needs remote neighbor windows")
     group = shard_group(spec.n_shards, group)
-    my_shard = dist.get_rank(group)
+    my_shard = collectives.group_rank(group)
     dev = state.store.device
     ins_src, ins_dst = as_ids(ins_src, dev), as_ids(ins_dst, dev)
     n_batches = ins_src.shape[0]
@@ -463,9 +468,11 @@ def sharded_run_stream(state: EngineState, key, ins_src, ins_dst,
 
 def local_shard_state(graph: StreamingGraph, store: WalkStore,
                       spec: ShardSpec, shard: int, capacity: int,
-                      max_pending: int = 8) -> EngineState:
+                      max_pending: int = 8,
+                      pending: Optional[PendingBlocks] = None) -> EngineState:
     """Shard `shard`'s part of a merged single-device engine state (on the
-    store's device). Raises if its owned rows exceed a capacity."""
+    store's device), its pending blocks `pending` (cleared in place) or new
+    ones. Raises if its owned rows exceed a capacity."""
     src = hi32(graph.codes)      # SENTINEL's source 2^32-1 is no shard's
     gmask = (graph.codes != SENTINEL) & (shard_of_vertex(src, spec.vps)
                                          == shard)
@@ -490,8 +497,10 @@ def local_shard_state(graph: StreamingGraph, store: WalkStore,
         store.slot_epoch, store.length, store.n_walks, store.n_vertices,
         chunk_b=store.chunk_b)
     epoch = int(u32_value(store.slot_epoch).max())
+    if pending is not None:
+        pending.clear_()
     return EngineState.create(g_k, s_k, max_pending, capacity * store.length,
-                              epoch=epoch)
+                              pending=pending, epoch=epoch)
 
 
 def shard_state(graph: StreamingGraph, store: WalkStore, spec: ShardSpec,

@@ -4,25 +4,27 @@
 observed, and so are the plain twins that a CPU route calls without a
 wrapper (the FINDNEXT, intersect, fused-step and SGNS twins), under their
 kernel's name, so that a count on the CPU sees what a count on the card
-sees. A twin called inside an observed wrapper is the wrapper's call."""
+sees. A twin called inside an observed wrapper is the wrapper's call.
+The observer is the calling thread's: a counter of one rank of ranks run
+as threads (`launch/lockstep.py`) sees that rank's calls alone."""
 from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 
-_observer = None
+_tls = threading.local()
 
 
 @contextlib.contextmanager
 def observe(observer):
-    """Within the block, each observed call runs inside
+    """Within the block, each observed call this thread makes runs inside
     `observer.kernel(name, args)`."""
-    global _observer
-    saved, _observer = _observer, observer
+    saved, _tls.observer = getattr(_tls, "observer", None), observer
     try:
         yield observer
     finally:
-        _observer = saved
+        _tls.observer = saved
 
 
 def observed(name: str, args_of=None):
@@ -31,9 +33,10 @@ def observed(name: str, args_of=None):
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args):
-            if _observer is None:
+            observer = getattr(_tls, "observer", None)
+            if observer is None:
                 return fn(*args)
-            with _observer.kernel(name, args if args_of is None else args_of(args)):
+            with observer.kernel(name, args if args_of is None else args_of(args)):
                 return fn(*args)
         return wrapper
     return deco

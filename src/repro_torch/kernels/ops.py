@@ -4,11 +4,15 @@ Each wrapper looks at where its tensors lie: on the CPU it runs the plain
 PyTorch version; on the card it launches the CUDA kernel, or raises if the
 launch fails. There is no fallback from the card to the plain version.
 `launches[name]` counts the kernel launches each wrapper made, so that a
-run can show that the main path went through the kernels. An observer
+run can show that the main path went through the kernels, and
+`thread_launches()` the calling thread's (one rank's, where ranks run as
+threads: `launch/lockstep.py`). An observer
 (`kernels/_observe.py`) is told of every wrapper call, on the card or on
 the CPU.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -24,11 +28,28 @@ KERNELS = ("szudzik_pair", "szudzik_unpair", "delta_decode",
            "find_next_packed", "intersect_next", "intersect_csr",
            "fused_rewalk_step", "sgns_step")
 launches = dict.fromkeys(KERNELS, 0)
+_lock = threading.Lock()
+_tls = threading.local()
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
-        launches[name] = 0
+    with _lock:
+        for name in KERNELS:
+            launches[name] = 0
+
+
+def thread_launches() -> dict:
+    """The launches this thread's wrappers made (never reset)."""
+    counts = getattr(_tls, "launches", None)
+    if counts is None:
+        counts = _tls.launches = dict.fromkeys(KERNELS, 0)
+    return counts
+
+
+def _launched(name: str) -> None:
+    with _lock:
+        launches[name] += 1
+    thread_launches()[name] += 1
 
 
 def _on_card(*tensors: torch.Tensor) -> bool:
@@ -50,7 +71,7 @@ def szudzik_pair(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if not _on_card(x, y):
         return _szudzik.pair_plain(x, y)
     out = _szudzik.pair_cuda(x, y)
-    launches["szudzik_pair"] += 1
+    _launched("szudzik_pair")
     return out
 
 
@@ -60,7 +81,7 @@ def szudzik_unpair(z: torch.Tensor):
     if not _on_card(z):
         return _szudzik.unpair_plain(z)
     out = _szudzik.unpair_cuda(z)
-    launches["szudzik_unpair"] += 1
+    _launched("szudzik_unpair")
     return out
 
 
@@ -72,7 +93,7 @@ def delta_decode(packed, widths, anchors_hi, anchors_lo, rows):
                                         anchors_lo, rows)
     out = _delta.decode_rows_cuda(packed, widths, anchors_hi, anchors_lo,
                                   rows)
-    launches["delta_decode"] += 1
+    _launched("delta_decode")
     return out
 
 
@@ -87,7 +108,7 @@ def find_next_packed(packed, widths, anchors_hi, anchors_lo, chunk_idx,
                                           anchors_lo, chunk_idx, f_targets)
     out = _rs.find_next_packed_cuda(packed, widths, anchors_hi, anchors_lo,
                                     chunk_idx, f_targets)
-    launches["find_next_packed"] += 1
+    _launched("find_next_packed")
     return out
 
 
@@ -103,7 +124,7 @@ def intersect_next(nbrs_v, nbrs_p, prev, u_group, u_rank, inv_p: float,
     nbrs_v, nbrs_p = _intersect.pad_windows(nbrs_v, nbrs_p)
     out = _intersect.factorized_cuda(nbrs_v, nbrs_p, prev, u_group, u_rank,
                                      inv_p, inv_q)
-    launches["intersect_next"] += 1
+    _launched("intersect_next")
     return out
 
 
@@ -119,7 +140,7 @@ def intersect_csr(codes, offsets, v, prev, u, dmax: int, inv_p: float,
                                                inv_p, inv_q)
     out = _intersect.factorized_csr_cuda(codes, offsets, v, prev, u, dmax,
                                          inv_p, inv_q)
-    launches["intersect_csr"] += 1
+    _launched("intersect_csr")
     return out
 
 
@@ -130,7 +151,7 @@ def fused_rewalk_step(store, step):
     if not _on_card(store.packed, step.cur):
         return _mk.fused_step_plain(store, step)
     out = _mk.fused_step_cuda(store, step)
-    launches["fused_rewalk_step"] += 1
+    _launched("fused_rewalk_step")
     return out
 
 
@@ -141,7 +162,7 @@ def sgns_step(u: torch.Tensor, v_pos: torch.Tensor, v_neg: torch.Tensor):
     if not _on_card(u, v_pos, v_neg):
         return _sgns.sgns_plain(u, v_pos, v_neg)
     out = _sgns.sgns_cuda(u, v_pos, v_neg)
-    launches["sgns_step"] += 1
+    _launched("sgns_step")
     return out
 
 

@@ -344,6 +344,16 @@ class _Counter(TorchDispatchMode):
         self.totals.coll_bytes[kind] += nbytes * self.mult
         self.totals.coll_counts[kind] += self.mult
 
+    @contextlib.contextmanager
+    def suspended(self):
+        """No op is counted within the block: a collective's own copies,
+        which it records as one collective."""
+        self.paused += 1
+        try:
+            yield
+        finally:
+            self.paused -= 1
+
 
 def _has_dtensor(types) -> bool:
     from torch.distributed.tensor import DTensor
@@ -411,33 +421,38 @@ def meta_args(plan):
                  and not a.is_floating_point() else a for a in plan.args)
 
 
-def _count(plan, args, scale_loops: bool):
-    """(the step's outputs, its counter)."""
+def _count(fn, args, scale_loops: bool):
+    """(`fn(*args)`, its counter): the ops this thread runs."""
     from repro_torch.distr import collectives
     from repro_torch.kernels import _observe
-    if args is None:
-        args = meta_args(plan)
     counter = _Counter(scale_loops)
     token = _ACTIVE.set(counter)
     try:
         with _observe.observe(counter), collectives.observe(counter), \
                 _reshard_as_all_to_all(counter), counter:
-            out = plan.fn(*args)
+            out = fn(*args)
     finally:
         _ACTIVE.reset(token)
     counter.totals.output_bytes = float(sum(_local_nbytes(t) for t in _tensors(out)))
     return out, counter
 
 
+def counted_call(fn, *args, scale_loops: bool = True, top: Optional[int] = 25):
+    """One call `fn(*args)` counted -> (its outputs, `analyze`'s totals,
+    `breakdown`'s rows, the `top` heaviest; all with `top` None)."""
+    out, counter = _count(fn, args, scale_loops)
+    rows = [(b, fl, opc, name, _shape_str(dt, shape), m)
+            for (opc, name, dt, shape), (b, fl, m) in counter.rows.items()]
+    rows.sort(key=lambda r: (r[0], r[1]), reverse=True)
+    return out, counter.totals, rows if top is None else rows[:top]
+
+
 def counted_run(plan, args=None, scale_loops: bool = True, top: int = 25):
     """One run of `plan.fn` on `args` (default: the plan's meta args),
     uniform loops scaled by their trip counts unless `scale_loops` is
     False -> (its outputs, `analyze`'s totals, `breakdown`'s rows)."""
-    out, counter = _count(plan, args, scale_loops)
-    rows = [(b, fl, opc, name, _shape_str(dt, shape), m)
-            for (opc, name, dt, shape), (b, fl, m) in counter.rows.items()]
-    rows.sort(key=lambda r: (r[0], r[1]), reverse=True)
-    return out, counter.totals, rows[:top]
+    args = meta_args(plan) if args is None else args
+    return counted_call(plan.fn, *args, scale_loops=scale_loops, top=top)
 
 
 def analyze(plan, args=None, scale_loops: bool = True) -> Totals:

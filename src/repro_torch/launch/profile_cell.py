@@ -11,6 +11,8 @@ alone).
         --static-only        # meta: the static table, on any machine
     python -m repro_torch.launch.profile_cell --arch gemma2-2b --shape decode_32k \\
         --multi              # one rank's table on the 2 x 16 x 16 mesh
+    python -m repro_torch.launch.profile_cell --arch wharf-stream --shape stream_10k \\
+        --mesh single --wharf-log2-n 12 --wharf-rewalk-capacity 1024 --device cpu
 
 A wharf cell runs on real inputs (`dryrun.wharf_inputs`) on `--device`,
 the card unless the caller asks for the CPU; on the CPU the step runs the
@@ -20,7 +22,10 @@ table (`--static-only` is implied). As the reference's, `--mesh single`
 and `--multi` (`--mesh multi`) partition such a plan on the 16 x 16 or
 2 x 16 x 16 mesh (`dryrun.fake_mesh`, `steps.partition`): the table then
 lists one rank's ops at their shard shapes and its collectives; `--mesh
-1`, the default, counts one card's step of the whole cell. For the
+1`, the default, counts one card's step of the whole cell. An order-1
+wharf cell on a mesh runs its 256 or 512 ranks as lockstep threads on
+`--device` (cut it with `--wharf-log2-n`) and lists rank 0's table, with
+no device trace; the order-2 wharf cells count on one card. For the
 runtime phases of a live engine see `repro_torch/obs/trace.py`.
 """
 from __future__ import annotations
@@ -103,12 +108,32 @@ def profile_cell(arch: str, shape: str, *, config=None, info=None, device=None,
                  smoke: bool = False, mesh=None) -> dict:
     """The static table and, for a wharf cell, the profiled run; `info`
     stands for the shape's entry (a cell cut in batches). With `mesh` (a
-    `DeviceMesh`; LM, GNN and recsys cells) the table is one rank's of the
-    plan partitioned on it."""
+    `DeviceMesh`) the table is one rank's of the plan partitioned on it:
+    an LM, GNN or recsys plan's on meta, an order-1 wharf cell's rank 0 of
+    its ranks run as lockstep threads on real inputs on `device`
+    (`launch/lockstep.py`; no device trace)."""
     from repro_torch._device import resolve_device
     from repro_torch.configs import get_arch
     from repro_torch.launch.dryrun import wharf_inputs
     from repro_torch.launch.steps import build_cell
+    wharf = get_arch(arch).family == "wharf"
+    if mesh is not None and wharf:
+        # the S ranks of the explicit partition as lockstep threads, rank 0
+        # counted: its table alone, no device trace of S ranks
+        from repro_torch.launch import lockstep
+        from repro_torch.launch.dryrun import (ORDER2_NOTE, mesh_name, partitionable,
+                                               wharf_mesh_inputs)
+        if not partitionable(shape):
+            raise ValueError(f"{shape}: {ORDER2_NOTE}")
+        cfg = config or get_arch(arch).make_config(smoke)
+        plan = build_cell(arch, shape, mesh=mesh, smoke=smoke, config=config, info=info)
+        dev = resolve_device(device)
+        args, setup, _ = wharf_mesh_inputs(plan, cfg, seed, dev)
+        run = lockstep.run(lambda r, _: plan.fn(*args), mesh.size(), device=dev, setup=setup,
+                           counted=0, top=None)
+        return {"arch": arch, "shape": shape, "step": plan.step_name,
+                "mesh": mesh_name(mesh), "totals": run.totals, "static": run.rows[:top],
+                "op_calls": sum(r[5] for r in run.rows)}
     if mesh is not None:
         from repro_torch.launch.dryrun import mesh_name
         from repro_torch.launch.steps import partition
@@ -119,7 +144,7 @@ def profile_cell(arch: str, shape: str, *, config=None, info=None, device=None,
                 "mesh": mesh_name(mesh), "totals": tot, "static": rows}
     plan = build_cell(arch, shape, smoke=smoke, config=config, info=info)
     out = {"arch": arch, "shape": shape, "step": plan.step_name}
-    if get_arch(arch).family != "wharf":
+    if not wharf:
         _, tot, rows = counted_run(plan, top=top)
         out.update(totals=tot, static=rows)
         return out
@@ -141,6 +166,8 @@ def print_profile(prof: dict) -> None:
     print(f"{prof['arch']} x {prof['shape']} ({prof['step']}){where}")
     print(f"totals: flops={tot.flops:.4g} mem={tot.mem_bytes:.4g}B "
           f"coll={tot.coll_total:.4g}B kernels={ {k: v for k, v in tot.kernel_calls.items() if v} }")
+    if "op_calls" in prof:
+        print(f"ops counted: {prof['op_calls']:.0f} calls (views and bare allocations aside)")
     if "mesh" in prof:
         print("collectives: " + ", ".join(
             f"{k} {tot.coll_counts[k]:.0f} x {tot.coll_bytes[k]:.4g}B"
@@ -167,6 +194,9 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true", help="the smoke config")
     ap.add_argument("--wharf-log2-n", type=int, default=20,
                     help="the wharf config's vertices, 2^N (20: uncut)")
+    ap.add_argument("--wharf-rewalk-capacity", type=int, default=0,
+                    help="the wharf config's rewalk capacity (0: dryrun.wharf_config's)")
+    ap.add_argument("--wharf-max-pending", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: the card")
     ap.add_argument("--static-only", action="store_true")
@@ -177,10 +207,9 @@ def main(argv=None):
     from repro_torch.configs import get_arch
     from repro_torch.launch.dryrun import fake_mesh
     wharf = get_arch(args.arch).family == "wharf"
-    config = wharf_config(args.wharf_log2_n) if wharf and not args.smoke else None
+    config = (wharf_config(args.wharf_log2_n, args.wharf_max_pending,
+                           args.wharf_rewalk_capacity) if wharf and not args.smoke else None)
     mesh = "multi" if args.multi else args.mesh
-    if mesh != "1" and wharf:
-        ap.error("the wharf cells run one card's step (--mesh 1)")
     kw = dict(config=config, device=args.device, seed=args.seed, top=args.top,
               smoke=args.smoke, static_only=args.static_only)
     if mesh == "1":

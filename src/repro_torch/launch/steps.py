@@ -629,6 +629,74 @@ def _write_row(stacked, row: int, state) -> None:
     stacked["epoch"][row] = u32_bits(torch.tensor(state.epoch))
 
 
+def shard_row(stacked, rank: int, graph, store, cfg) -> None:
+    """Write shard `rank`'s part of a merged single-device (graph, store)
+    (`distr.sharded.local_shard_state` at the S of `stacked`) into row
+    `rank` of an [S, ...]-stacked state, its pending blocks cleared in
+    place: what one rank builds of a partitioned wharf step's input."""
+    from repro_torch.core.update import PendingBlocks
+    from repro_torch.distr.sharded import local_shard_state
+    pend = PendingBlocks(*(getattr(stacked["pending"], k)[rank] for k in PendingBlocks._fields))
+    spec = cfg.shard_spec(stacked["n_pending"].shape[0])
+    _write_row(stacked, rank, local_shard_state(graph, store, spec, rank, cfg.rewalk_capacity,
+                                                pend.code.shape[0], pending=pend))
+
+
+def unshard_rows(stacked, cfg):
+    """The rows of an [S, ...]-stacked state -> the single-device (graph
+    dict, store dict, overflow) they partition (`distr.sharded.
+    unshard_state`)."""
+    from repro_torch.distr.engine import graph_to_dict, store_to_dict
+    from repro_torch.distr.sharded import unshard_state
+    states = [_row_state(stacked, r, cfg) for r in range(stacked["n_pending"].shape[0])]
+    graph, store, overflow = unshard_state(states, cfg.edge_capacity)
+    return graph_to_dict(graph), store_to_dict(store), overflow
+
+
+def _stacked_args(cfg, spec, sn: int, max_pending: int):
+    """The meta [S, ...]-stacked state of the explicit partition."""
+    from repro_torch.kernels.delta import CHUNK
+    lead = (sn,)
+    nc_s = -(-spec.store_capacity // CHUNK)
+    return {
+        "graph": _graph_args(spec.edge_capacity, cfg.n_vertices, lead),
+        "store": _store_args(cfg, spec.store_capacity, nc_s, lead),
+        "pending": _pending_args(dataclasses.replace(cfg, max_pending=max_pending), lead),
+        "n_pending": S(lead, I32), "epoch": S(lead, U32),
+        "last_affected": S(lead, I32), "total_affected": S(lead, I32),
+        "overflow": S(lead, torch.bool)}
+
+
+def _rank_stream(stacked, keys, ins_src, ins_dst, del_src, del_dst, *, cfg, spec, sn,
+                 max_pending: int, merge_policy: str, epoch_of_store: bool):
+    """The calling rank's row of `stacked` through the [n_batches, ...]
+    stream (`distr.sharded.sharded_stream_step` a batch), then the local
+    consolidate; the row written back in place. Returns the affected
+    counts [1, n_batches]. The epoch starts at the row's, or at the
+    store's highest slot epoch (`distributed_run_stream`'s start)."""
+    from repro_torch._u64 import u32_value
+    from repro_torch.core.graph import as_ids
+    from repro_torch.distr.collectives import group_rank
+    from repro_torch.distr.sharded import consolidate, shard_group, sharded_stream_step
+    group = shard_group(sn)
+    rank = group_rank(group)
+    state = _row_state(stacked, rank, cfg)
+    if epoch_of_store:
+        state = state.replace(epoch=int(u32_value(state.store.slot_epoch).max()))
+    dev = state.store.device
+    ins_src, ins_dst = as_ids(ins_src, dev), as_ids(ins_dst, dev)
+    del_src, del_dst = as_ids(del_src, dev), as_ids(del_dst, dev)
+    affected = []
+    for i in range(ins_src.shape[0]):
+        state = sharded_stream_step(
+            state, keys[i], ins_src[i], ins_dst[i], del_src[i], del_dst[i], cfg.walk_config(),
+            cfg.rewalk_capacity, spec, rank, max_pending, merge_policy, group)
+        affected.append(state.last_affected)
+    # end-of-stream consolidate: the returned store is self-contained
+    _write_row(stacked, rank, consolidate(state))
+    return torch.stack(affected)[None]
+
+
 def _wharf_plan(arch, cfg, info, mesh, shape_name) -> CellPlan:
     """The paper's walk-update step (the reference's `_wharf_plan`).
 
@@ -644,7 +712,21 @@ def _wharf_plan(arch, cfg, info, mesh, shape_name) -> CellPlan:
     and needs `torch.distributed` at S ranks.
     kind="walk_serve": the batched multi-query read step: the overlay over
     base + pending, FINDNEXT, walks-of, the walk matrix and its
-    neighborhoods, and the embedding top-k, over a replicated view."""
+    neighborhoods, and the embedding top-k, over a replicated view.
+
+    On a mesh the order-1 update and stream kinds run as the sharded cell
+    does: their state arg is the [S, ...]-stacked explicit partition (S the
+    mesh's size, `_stacked_args`), and each rank (one `torch.distributed`
+    rank, or one thread of an in-process group: `launch/lockstep.py`)
+    runs its row through `distr/sharded.py`: walk_update one
+    `sharded_stream_step` with `max_pending` 1, eager if `do_merge` else
+    on-demand, from epoch `new_epoch - 1`, returning the store rows;
+    walk_stream the batches with the shape's policy, then the local
+    consolidate, returning the graph and store rows and the affected
+    counts. The serve kind replicates every argument, so each rank runs
+    the whole read step. The order-2 kinds keep the reference's GSPMD
+    shardings as data: the explicit engine is order 1 only (a per-shard
+    order-2 rewalk needs N(prev) from another shard)."""
     from repro_torch.distr.engine import distributed_run_stream, distributed_update_step
     from repro_torch.kernels.delta import CHUNK
 
@@ -672,11 +754,6 @@ def _wharf_plan(arch, cfg, info, mesh, shape_name) -> CellPlan:
         g_sh, s_sh = _wharf_shardings(mesh)
 
     if info["kind"] == "walk_stream_sharded":
-        import torch.distributed as dist
-
-        from repro_torch.core.graph import as_ids
-        from repro_torch.distr.sharded import consolidate, shard_group, sharded_stream_step
-
         n_batches = info.get("n_batches", cfg.stream_batches)
         merge_policy = info.get("merge_policy", "on-demand")
         del_e = info.get("del_edges", 0)
@@ -686,31 +763,12 @@ def _wharf_plan(arch, cfg, info, mesh, shape_name) -> CellPlan:
         spec = cfg.shard_spec(sn)
 
         def sharded_stream(stacked, keys, ins_src, ins_dst, del_src, del_dst):
-            group = shard_group(sn)
-            rank = dist.get_rank(group)
-            state = _row_state(stacked, rank, cfg)
-            dev = state.store.device
-            ins_src, ins_dst = as_ids(ins_src, dev), as_ids(ins_dst, dev)
-            del_src, del_dst = as_ids(del_src, dev), as_ids(del_dst, dev)
-            affected = []
-            for i in range(n_batches):
-                state = sharded_stream_step(
-                    state, keys[i], ins_src[i], ins_dst[i], del_src[i], del_dst[i], wcfg,
-                    cfg.rewalk_capacity, spec, rank, cfg.max_pending, merge_policy, group)
-                affected.append(state.last_affected)
-            # end-of-stream consolidate: the returned store is self-contained
-            _write_row(stacked, rank, consolidate(state))
-            return stacked, torch.stack(affected)[None]
+            affected = _rank_stream(stacked, keys, ins_src, ins_dst, del_src, del_dst, cfg=cfg,
+                                    spec=spec, sn=sn, max_pending=cfg.max_pending,
+                                    merge_policy=merge_policy, epoch_of_store=False)
+            return stacked, affected
 
-        lead = (sn,)
-        nc_s = -(-spec.store_capacity // CHUNK)
-        state = {
-            "graph": _graph_args(spec.edge_capacity, cfg.n_vertices, lead),
-            "store": _store_args(cfg, spec.store_capacity, nc_s, lead),
-            "pending": _pending_args(cfg, lead),
-            "n_pending": S(lead, I32), "epoch": S(lead, U32),
-            "last_affected": S(lead, I32), "total_affected": S(lead, I32),
-            "overflow": S(lead, torch.bool)}
+        state = _stacked_args(cfg, spec, sn, cfg.max_pending)
         args = (state, S((n_batches, 2), KEY),
                 S((n_batches, batch_e), U32), S((n_batches, batch_e), U32),
                 S((n_batches, del_e), U32), S((n_batches, del_e), U32))
@@ -754,6 +812,34 @@ def _wharf_plan(arch, cfg, info, mesh, shape_name) -> CellPlan:
         return CellPlan(arch, shape_name, "walk_serve_step", serve_step, args,
                         in_sh, out_sh, serve_flops, donate_argnums=())
 
+    # the explicit partition on a mesh: the order-1 update and stream kinds
+    explicit = mesh is not None and cfg.order == 1
+    if explicit:
+        sn = mesh_size(mesh)
+        spec = cfg.shard_spec(sn)
+        flat = P(tuple(mesh.mesh_dim_names))
+
+    if info["kind"] == "walk_stream" and explicit:
+        n_batches = info.get("n_batches", cfg.stream_batches)
+        merge_policy = info.get("merge_policy", "on-demand")
+        del_e = info.get("del_edges", 0)
+
+        def rank_stream(stacked, keys, ins_src, ins_dst, del_src, del_dst):
+            affected = _rank_stream(stacked, keys, ins_src, ins_dst, del_src, del_dst, cfg=cfg,
+                                    spec=spec, sn=sn, max_pending=cfg.max_pending,
+                                    merge_policy=merge_policy, epoch_of_store=True)
+            return stacked["graph"], stacked["store"], affected
+
+        state = _stacked_args(cfg, spec, sn, cfg.max_pending)
+        args = (state, S((n_batches, 2), KEY),
+                S((n_batches, batch_e), U32), S((n_batches, batch_e), U32),
+                S((n_batches, del_e), U32), S((n_batches, del_e), U32))
+        part = shr.named(mesh, tree_map(lambda _: flat, state))
+        in_sh = (part,) + (_rep(mesh),) * 5
+        out_sh = (part["graph"], part["store"], NamedSharding(mesh, flat))
+        return CellPlan(arch, shape_name, "walk_stream_step", rank_stream, args, in_sh,
+                        out_sh, flops_batch * n_batches, donate_argnums=(0,))
+
     if info["kind"] == "walk_stream":
         n_batches = info.get("n_batches", cfg.stream_batches)
         merge_policy = info.get("merge_policy", "on-demand")
@@ -776,6 +862,33 @@ def _wharf_plan(arch, cfg, info, mesh, shape_name) -> CellPlan:
                         in_sh, out_sh, flops_batch * n_batches, donate_argnums=(1,))
 
     do_merge = info.get("do_merge", True)
+
+    if explicit:
+        def rank_update(stacked, ins_src, ins_dst, new_epoch, key):
+            from repro_torch._u64 import u32_value
+            from repro_torch.core.graph import as_ids
+            from repro_torch.distr.collectives import group_rank
+            from repro_torch.distr.sharded import shard_group, sharded_stream_step
+            group = shard_group(sn)
+            rank = group_rank(group)
+            # one pending block, from epoch new_epoch - 1: distributed_update_step
+            state = _row_state(stacked, rank, cfg).replace(
+                epoch=int(u32_value(torch.as_tensor(new_epoch))) - 1)
+            dev = state.store.device
+            none = torch.zeros((0,), dtype=torch.int64, device=dev)
+            state = sharded_stream_step(
+                state, jr.as_key(key, dev), as_ids(ins_src, dev), as_ids(ins_dst, dev), none,
+                none, wcfg, cfg.rewalk_capacity, spec, rank, 1,
+                "eager" if do_merge else "on-demand", group)
+            _write_row(stacked, rank, state)
+            return stacked["store"]
+
+        state = _stacked_args(cfg, spec, sn, 1)
+        args = (state, S((batch_e,), U32), S((batch_e,), U32), S((), U32), S((2,), KEY))
+        part = shr.named(mesh, tree_map(lambda _: flat, state))
+        return CellPlan(arch, shape_name, "walk_update_step", rank_update, args,
+                        (part,) + (_rep(mesh),) * 4, part["store"], flops_batch,
+                        donate_argnums=(0,))
 
     def step(graph_d, store_d, ins_src, ins_dst, new_epoch, key):
         return distributed_update_step(graph_d, store_d, ins_src, ins_dst, new_epoch, key,

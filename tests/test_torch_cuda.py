@@ -1003,3 +1003,26 @@ def test_partitioned_steps_on_the_card(dev, tmp_path):
     for r in partitioned.check(cells, device=dev, workdir=str(tmp_path)):
         assert partitioned.passed(r), r
         assert all(not any(rank["launches"].values()) for rank in r["ranks"])
+
+
+def test_wharf_cell_on_lockstep_ranks_on_the_card(dev):
+    """chip_smoke's 11e-a at a small size: stream_10k_sharded (2 batches)
+    at 2^12 vertices on 8 lockstep ranks sharing the card on a (2, 4)
+    mesh, its rows unsharded = the one-card plan's outputs on the same
+    inputs bit for bit; kernels 1 and 2 launched on every rank."""
+    import chip_smoke
+    from repro_torch.launch import dryrun, lockstep, steps
+    from repro_torch.launch.mesh import fake_mesh
+    cfg = dryrun.wharf_config(12, max_pending=2)
+    info = dryrun.cut_info("stream_10k_sharded", 2)
+    with fake_mesh((2, 4), ("data", "model")) as mesh:
+        plan = steps.build_cell("wharf-stream", "stream_10k_sharded", mesh=mesh, config=cfg,
+                                info=info)
+    args, setup, _ = dryrun.wharf_mesh_inputs(plan, cfg, 5, dev)
+    run = lockstep.run(lambda r, _: plan.fn(*args), 8, device=dev, setup=setup)
+    one = steps.build_cell("wharf-stream", "stream_10k_sharded", config=cfg, info=info)
+    oargs = dryrun.wharf_inputs(one, cfg, 5, dev)
+    want = lockstep.run(lambda r, _: one.fn(*oargs), 1, device=dev, counted=None).outputs[0]
+    chip_smoke.mesh_outputs_equal("stream_10k_sharded", plan, args, run, want, cfg)
+    chip_smoke.ranks_launched("stream_10k_sharded", run.launches)
+    assert run.launches[0] == {k: int(v) for k, v in run.totals.kernel_calls.items()}

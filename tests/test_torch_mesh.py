@@ -147,7 +147,13 @@ def test_every_cell_builds_on_the_mesh(mesh):
     s = tmesh.mesh_size(mesh)
     assert plan.args[0]["graph"]["codes"].shape[0] == s
     assert plan.in_shardings[0]["store"]["code"].placements == (Shard(0),) * len(names)
-    plan = steps.build_cell("wharf-stream", "stream_10k_mixed", mesh=mesh)
+    # an order-1 cell on a mesh is the explicit partition: [S, ...] rows
+    for shape in ("stream_10k_mixed", "stream_10k"):
+        plan = steps.build_cell("wharf-stream", shape, mesh=mesh)
+        assert plan.args[0]["store"]["slot_epoch"].shape[0] == s
+        assert plan.in_shardings[0]["graph"]["codes"].placements == (Shard(0),) * len(names)
+    # an order-2 cell keeps the reference's GSPMD shardings
+    plan = steps.build_cell("wharf-stream", "stream_10k_n2v_rejection", mesh=mesh)
     g, st = plan.in_shardings[:2]
     flat = tuple(Shard(0) if n in ("data", "model") else Replicate() for n in names)
     assert g["codes"].placements == st["packed"].placements == flat
