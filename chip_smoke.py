@@ -199,6 +199,21 @@ every phase passed):
      16 x 16 count, runs as the dry-run CLI (`--include-wharf --mesh
      single`; README): 256 lockstep ranks take ~170 s for one batch.
      The cuts are printed as `reduced_plans`.
+ 12. the four example drivers (examples/quickstart_torch.py,
+     ppr_serving_torch.py, streaming_embeddings_torch.py, train_lm_torch.py)
+     at their own sizes (1,024, 512 and 256 vertices; gemma2-2b's smoke
+     config, 20 steps), each through its `main` with the default device,
+     its launches counted (quickstart must launch kernels 1, 2, 4 and 7), its
+     seconds and peak GB; each run's printed lines held against the same
+     driver with `--device cpu` (a process of its own, started before
+     phase 9) under `EXAMPLE_RULES`, the rules tests/test_torch_examples.py
+     holds the CPU runs to against the JAX package's drivers: integers and
+     walk-derived ids exact, score-ranked ids exact but at ties within the
+     stated tolerance, losses, accuracies and SMAPE within theirs.
+     12b: the stats tier's factorized chi-square at p = 0.25, q = 4, dmax
+     128: SAMPLENEXT through kernel 5's CSR entry and an insert+delete
+     stream through kernel 6, each below the alpha = 1e-3 critical value and
+     its counts equal to the CPU's.
 Phase 2 also runs a small maintainer on the card against the CPU and
 against a plain engine, and the order-1 stream with `WalkConfig(metrics=
 True)` on the card: its state equals the plain run's, its counters equal
@@ -208,10 +223,13 @@ it prints the exported summary. Each phase prints one JSON line.
 import bisect
 import contextlib
 import dataclasses
+import importlib.util
 import inspect
 import itertools
 import json
 import os
+import pickle
+import re
 import shutil
 import subprocess
 import sys
@@ -3975,6 +3993,302 @@ def phase_plans(dev, workdir, part_meta) -> dict:
                 mesh_launches=mesh_launches)
 
 
+# ---------------------------------------------------------------- phase 12
+# the four example drivers (examples/*_torch.py) on the card, each held
+# against the same driver on the CPU under the rules below, which
+# tests/test_torch_examples.py holds the CPU runs to against the JAX
+# package's drivers. The CPU runs go in a process of their own, started
+# beside 11d-a's count.
+
+EXAMPLE_DRIVERS = ("quickstart", "ppr_serving", "streaming_embeddings", "train_lm")
+EXAMPLES_CPU_THREADS = 2    # the CPU child's share of the host's cores
+# the kernels quickstart must launch on the card: pair and unpair, packed
+# FINDNEXT and, in its maintainer, SGNS. Kernel 3 is not among them: its
+# FINDNEXT decodes the chunks inside kernel 4 (as the reference's search
+# kernel inlines `decode_block`), and only `walks_of` and
+# `PackedWalkStore.decode`, which no driver calls, launch the decode kernel
+QUICKSTART_KERNELS = ("szudzik_pair", "szudzik_unpair", "find_next_packed", "sgns_step")
+# quickstart's nearest neighbors are ranked by cosine scores of tables held
+# to the reference's f32 tolerance (SGNS steps within rtol 2e-4 / atol 1e-5;
+# on the card `masked_sgns_step` adds rows with atomics in an order of its
+# own); ppr_serving's top-5 by f32 PPR scores (the card's within a few ulps
+# of the CPU's). Two ids differ only where their scores lie within these.
+NEIGHBOR_TIE_TOL = 1e-3
+PPR_TIE_TOL = 1e-6
+
+
+def _ids_rule(scores_of, tie_tol: float):
+    """A ranked id list: equal, or where the ids differ, their scores (a
+    full row of the run that printed `got`) within `tie_tol`."""
+    def check(got: str, want: str, values, m) -> float:
+        a, b = json.loads(got), json.loads(want)
+        if len(a) != len(b):
+            raise AssertionError(f"{got} != {want}")
+        scores = scores_of(values, m)
+        worst = 0.0
+        for x, y in zip(a, b):
+            if x != y:
+                gap = abs(float(scores[x]) - float(scores[y]))
+                if not gap <= tie_tol:
+                    raise AssertionError(f"{got} != {want}: ids {x} and {y} "
+                                         f"score {gap} apart (tie tolerance {tie_tol})")
+                worst = max(worst, gap)
+        return worst
+    return check
+
+
+def _close(tol: float):
+    """A printed float within `tol` of the other run's."""
+    def check(got: str, want: str, values, m) -> float:
+        err = abs(float(got) - float(want))
+        if not err <= tol:
+            raise AssertionError(f"{got} != {want} within {tol}")
+        return err
+    return check
+
+
+def _skip(got, want, values, m) -> float:
+    return 0.0
+
+
+# Per driver: (pattern, {group: rule}). A line that matches no pattern must
+# be equal letter for letter; in a matched line the text outside the groups
+# is the pattern's, and a group without a rule must be equal. Every integer
+# and every walk-derived id is exact; the tolerances name the worst case
+# measured on an 8-core CPU (JAX driver against the port).
+EXAMPLE_RULES = {
+    "quickstart": [
+        # the resolved FINDNEXT backend: "cuda" on the card, "torch" on the
+        # CPU, the reference's "interpret" there: never compared
+        (r"find_next backend: (?P<backend>\w+)", {"backend": _skip}),
+        (r"maintained embeddings over 8 batches: (?P<pairs>\d+) pairs trained on "
+         r"(?P<walks>\d+) affected walks \(loss/pair (?P<loss>[-\d.]+)\)",
+         {"loss": _close(0.01)}),      # measured 0 (3.460 both)
+        (r"nearest neighbors of v=(?P<v>\d+): before (?P<before>\[[\d, ]*\]) -> "
+         r"after (?P<after>\[[\d, ]*\])",
+         {"before": _ids_rule(lambda values, m: values["before"]["scores"],
+                              NEIGHBOR_TIE_TOL),
+          "after": _ids_rule(lambda values, m: values["after"]["scores"],
+                             NEIGHBOR_TIE_TOL)}),
+    ],
+    "ppr_serving": [
+        (r"batch (?P<batch>\d+): (?P<walks>\d+) walks refreshed \| SMAPE vs "
+         r"from-scratch (?P<smape>[\d.]+)% \| ppr\(7\) top-5 = (?P<top>\[[\d, ]*\])",
+         {"smape": _close(0.1),        # one printed digit; measured 0
+          "top": _ids_rule(lambda values, m: values["ppr7"][int(m["batch"])],
+                           PPR_TIE_TOL)}),
+    ],
+    "streaming_embeddings": [
+        # the mean loss of an epoch after 6-14 epochs (~30 SGNS steps each,
+        # lr 0.05, every step within rtol 2e-4 of the reference's), and a
+        # linear probe's accuracy over 77 test vertices: the training
+        # amplifies the f32 sum order, and the CPU's alone moves with torch's
+        # thread count. Measured worst case against the JAX driver at 1-8
+        # threads: loss 0.009 (1.278 / 1.269), acc 0.038 (3 of 77 test
+        # vertices: 0.519 / 0.481); the H100 against the CPU: loss 0.011,
+        # acc 0.013
+        (r"snapshot -1: loss=(?P<loss>[\d.]+) acc=(?P<acc>[\d.]+)",
+         {"loss": _close(0.03), "acc": _close(0.08)}),
+        (r"snapshot (?P<snap>\d+): (?P<walks>\d+) walks updated, loss=(?P<loss>[\d.]+) "
+         r"acc=(?P<acc>[\d.]+) \(ckpt step (?P<step>\d+|None)\)",
+         {"loss": _close(0.03), "acc": _close(0.08),
+          # the JAX driver's fixed directory keeps steps of earlier runs:
+          # a run's own step is held against its snapshot index instead
+          "step": _skip}),
+        (r"done; embeddings checkpointed to (?P<dir>.*)", {"dir": _skip}),
+    ],
+    "train_lm": [
+        # ms a step is the host's; a slow step may be flagged a straggler
+        (r"step (?P<step>\d+): (?P<ms>[\d.]+)ms \{'loss': (?P<loss>[-\d.e]+), "
+         r"'gnorm': (?P<gnorm>[-\d.e]+)(?P<straggler>.*)\}",
+         {"ms": _skip, "straggler": _skip,
+          "loss": _close(1e-4), "gnorm": _close(1e-4)}),   # measured 4e-7, 1.2e-7
+    ],
+}
+# lines that only the host's timing prints
+EXAMPLE_TIMING_LINES = ("straggler events:",)
+
+
+def example_lines_match(name: str, got: list, want: list, values) -> dict:
+    """Hold driver `name`'s printed lines `got` (its run's raw `values`)
+    against `want` under EXAMPLE_RULES -> the largest difference seen in
+    each ruled group. Raises AssertionError on any other difference."""
+    got = [g for g in got if not g.startswith(EXAMPLE_TIMING_LINES)]
+    want = [w for w in want if not w.startswith(EXAMPLE_TIMING_LINES)]
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} lines != {len(want)}:\n"
+                             + "\n".join(got) + "\n---\n" + "\n".join(want))
+    worst = {}
+    for g, w in zip(got, want):
+        for pattern, rules in EXAMPLE_RULES[name]:
+            mg, mw = re.fullmatch(pattern, g), re.fullmatch(pattern, w)
+            if mg or mw:
+                break
+        else:
+            if g != w:
+                raise AssertionError(f"{name}: {g!r} != {w!r}")
+            continue
+        if not (mg and mw):
+            raise AssertionError(f"{name}: {g!r} != {w!r}")
+        for group, a in mg.groupdict().items():
+            b = mw[group]
+            rule = rules.get(group)
+            if rule is None:
+                if a != b:
+                    raise AssertionError(f"{name}: {group} {a!r} != {b!r} in {g!r}")
+                continue
+            try:
+                err = rule(a, b, values, mg)
+            except AssertionError as e:
+                raise AssertionError(f"{name}: {group} in {g!r} vs {w!r}: {e}") from None
+            worst[group] = max(worst.get(group, 0.0), err)
+    return worst
+
+
+def checkpoint_steps_match(lines: list) -> None:
+    """streaming_embeddings into a fresh directory: snapshot i's line names
+    checkpoint step i."""
+    snaps = [re.search(r"snapshot (\d+): .*\(ckpt step (\d+)\)", g) for g in lines]
+    snaps = [m for m in snaps if m]
+    assert len(snaps) == 4 and all(m[1] == m[2] for m in snaps), lines
+
+
+def load_example(name: str):
+    """The port's driver examples/<name>_torch.py as a module."""
+    path = os.path.join(_ROOT, "examples", f"{name}_torch.py")
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_argv(name: str, workdir: str, device=None) -> list:
+    """A driver's arguments: the default device unless `device`, and a
+    fresh checkpoint directory where it keeps one."""
+    argv = [] if device is None else ["--device", device]
+    if name in ("streaming_embeddings", "train_lm"):
+        argv += ["--ckpt-dir", tempfile.mkdtemp(prefix=f"{name}_", dir=workdir)]
+    return argv
+
+
+def run_example(name: str, argv: list):
+    """Run a driver -> (its lines, its raw values)."""
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        lines = load_example(name).main(argv)
+    return list(lines), getattr(lines, "values", {})
+
+
+def examples_cpu_child(workdir: str) -> None:
+    """The CPU half of phase 12, in a process of its own: every driver with
+    `--device cpu`, its lines and values pickled into `workdir`."""
+    torch.set_num_threads(EXAMPLES_CPU_THREADS)
+    out = {}
+    for name in EXAMPLE_DRIVERS:
+        t0 = time.perf_counter()
+        lines, values = run_example(name, example_argv(name, workdir, "cpu"))
+        out[name] = dict(lines=lines, values=values, seconds=time.perf_counter() - t0)
+    with open(os.path.join(workdir, "examples_cpu.pkl.tmp"), "wb") as f:
+        pickle.dump(out, f)
+    os.replace(os.path.join(workdir, "examples_cpu.pkl.tmp"),
+               os.path.join(workdir, "examples_cpu.pkl"))
+
+
+def start_examples_cpu(workdir: str):
+    """Phase 12's CPU runs in a process of their own -> (process, its log)."""
+    log_path = os.path.join(workdir, "examples_cpu.log")
+    env = dict(os.environ, OMP_NUM_THREADS=str(EXAMPLES_CPU_THREADS),
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (_ROOT, os.path.join(_ROOT, "src"),
+                               os.environ.get("PYTHONPATH")) if p))
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.examples_cpu_child(sys.argv[1])", workdir],
+            cwd=_ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
+    return proc, log_path
+
+
+def phase_examples(dev, workdir, cpu) -> dict:
+    """Phase 12: each driver on the card with its default device, its
+    launches counted (the counts set to 0 just before it and read just
+    after), seconds and peak GB (above what the earlier phases still hold);
+    then held against the CPU child's run (`cpu`: its process and log)
+    under EXAMPLE_RULES."""
+    runs, launches = {}, dict.fromkeys(ops.KERNELS, 0)
+    for name in EXAMPLE_DRIVERS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()   # the earlier phases' tensors
+        ops.reset_launches()     # ---- this driver's path, counted from here
+        (lines, values), dt = sync_time(lambda: run_example(name, example_argv(name, workdir)))
+        counts = dict(ops.launches)   # ---- read just after
+        for k in ops.KERNELS:
+            launches[k] += counts[k]
+        runs[name] = dict(lines=lines, values=values, seconds=dt,
+                          peak_gb=(torch.cuda.max_memory_allocated() - held) / 1e9,
+                          launches={k: v for k, v in counts.items() if v})
+    missing = [k for k in QUICKSTART_KERNELS if not runs["quickstart"]["launches"].get(k)]
+    assert not missing, f"quickstart on the card did not launch {missing}"
+    proc, log_path = cpu
+    t0 = time.perf_counter()
+    if proc.wait(timeout=600) != 0:
+        with open(log_path) as f:
+            raise RuntimeError(f"phase 12's CPU runs failed:\n{f.read()[-4000:]}")
+    waited = time.perf_counter() - t0
+    with open(os.path.join(workdir, "examples_cpu.pkl"), "rb") as f:
+        cpu_runs = pickle.load(f)
+    out = {}
+    for name in EXAMPLE_DRIVERS:
+        card_run, cpu_run = runs[name], cpu_runs[name]
+        worst = example_lines_match(name, card_run["lines"], cpu_run["lines"],
+                                    card_run["values"])
+        if name == "streaming_embeddings":
+            checkpoint_steps_match(card_run["lines"])
+        out[name] = dict(seconds=card_run["seconds"], peak_gb=card_run["peak_gb"],
+                         cpu_seconds=cpu_run["seconds"], launches=card_run["launches"],
+                         lines=len(card_run["lines"]), worst=worst)
+    return dict(drivers=out, launches=launches, cpu_wait_s=waited)
+
+
+def phase_stats(dev) -> dict:
+    """Phase 12b: the stats tier's factorized chi-square on the card at p =
+    0.25, q = 4, dmax 128 (tests/test_torch_walk_stats.py): SAMPLENEXT
+    through kernel 5's CSR entry, and an insert+delete stream whose rewalks
+    take kernel 6, each fit against the exact node2vec weights at alpha
+    1e-3, and each one's counts equal to the same draws on the CPU."""
+    sys.path.insert(0, os.path.join(_ROOT, "tests"))
+    import _torch_stats as ts
+    p, q = 0.25, 4.0
+    model = WalkModel(order=2, p=p, q=q, sampler="factorized", dmax=128)
+
+    def sampler(d):
+        g = ts.sampler_graph(d)
+        adj = ts.adjacency(g)
+        return adj, ts.sampler_counts(g, model, ts.edge_contexts(adj, 12), reps=16,
+                                      rounds=40, seed=50)
+
+    def stream(d, megakernel):
+        eng = ts.stream_engine("factorized", p, q, dev=d, dmax=128, megakernel=megakernel)
+        counts = ts.stream_transition_counts(eng, with_deletes=True)
+        return ts.adjacency(eng.graph), counts
+
+    ops.reset_launches()     # ---- 12b's path, counted from here
+    fits = {}
+    for what, (adj, counts) in (("csr_sampler", sampler(dev)),
+                                ("fused_stream", stream(dev, "cuda"))):
+        chi2, df, tv = ts.chi2_tv_against_exact(counts, adj, p, q)
+        fits[what] = dict(chi2=chi2, df=df, crit=ts.chi2_crit(df, 1e-3), tv=tv,
+                          counts=counts)
+    launches = dict(ops.launches)   # ---- read just after
+    assert launches["intersect_csr"] > 0 and launches["fused_rewalk_step"] > 0, launches
+    cpu = torch.device("cpu")
+    for what, (_, counts) in (("csr_sampler", sampler(cpu)),
+                              ("fused_stream", stream(cpu, "torch"))):
+        assert fits[what].pop("counts") == counts, f"12b {what}: card counts != CPU counts"
+        assert fits[what]["chi2"] < fits[what]["crit"], (what, fits[what])
+    return dict(fits=fits, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4023,19 +4337,32 @@ def main() -> int:
     # and 10 (beside 11a they slowed its CPU half)
     plans_dir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=_ROOT)
     part_meta = start_partitioned_dryrun(plans_dir)
+    # phase 12's CPU runs need no card either: they run from here on
+    examples_dir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=_ROOT)
+    examples_cpu = start_examples_cpu(examples_dir)
     try:
-        workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=_ROOT)
         try:
-            lm = phase_lm(dev, workdir)
-        finally:
-            shutil.rmtree(workdir, ignore_errors=True)
-        gnn_full = phase_gnn(dev)
-    except BaseException:
-        part_meta[0].kill()
-        part_meta[0].wait()
-        shutil.rmtree(plans_dir, ignore_errors=True)
-        raise
-    plans = phase_plans(dev, plans_dir, part_meta)
+            workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=_ROOT)
+            try:
+                lm = phase_lm(dev, workdir)
+            finally:
+                shutil.rmtree(workdir, ignore_errors=True)
+            gnn_full = phase_gnn(dev)
+        except BaseException:
+            part_meta[0].kill()
+            part_meta[0].wait()
+            shutil.rmtree(plans_dir, ignore_errors=True)
+            raise
+        plans = phase_plans(dev, plans_dir, part_meta)
+        examples = phase_examples(dev, examples_dir, examples_cpu)
+        log("examples", ok=True, **examples)
+    finally:
+        if examples_cpu[0].poll() is None:
+            examples_cpu[0].kill()
+        examples_cpu[0].wait()
+        shutil.rmtree(examples_dir, ignore_errors=True)
+    stats = phase_stats(dev)
+    log("stats", ok=True, **stats)
     next(r for r in kernels if r["name"] == "find_next_packed")["prefix_read"] = prefix_read
     # each kernel's launches on the main paths: order 1 (phase 3), the
     # maintainer (phase 3b), the serve path (phase 3c), and the order-2
@@ -4044,8 +4371,9 @@ def main() -> int:
     # sharded engine's four ranks (phase 7b), the launcher's
     # downstream trainer (phase 8b), the LM family and DLRM (phase 9,
     # none), the GNN family: the walk-based sampler over phase 3's
-    # store and phase 10 (none), the cell plans (phase 11a-11d) and the
-    # wharf cells on a mesh (11e)
+    # store and phase 10 (none), the cell plans (phase 11a-11d), the
+    # wharf cells on a mesh (11e), the four example drivers (phase 12) and
+    # the stats tier's order-2 fits (12b)
     for r in kernels:
         by_path = {"order1": full["launches"][r["name"]],
                    "maintainer": maint["launches"][r["name"]],
@@ -4057,7 +4385,9 @@ def main() -> int:
                    "lm": lm["launches"][r["name"]],
                    "gnn": gnn_path["launches"][r["name"]] + gnn_full["launches"][r["name"]],
                    "plans": plans["launches"][r["name"]],
-                   "mesh": plans["mesh_launches"][r["name"]]}
+                   "mesh": plans["mesh_launches"][r["name"]],
+                   "examples": examples["launches"][r["name"]],
+                   "stats": stats["launches"][r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         if r["name"] in OFF_MAIN_PATH:

@@ -31,6 +31,11 @@ def edge_code(src, dst):
     return bias((src.to(torch.int64) << 32) | dst.to(torch.int64))
 
 
+def edge_endpoints(code):
+    """Biased edge codes -> (src, dst) as int64 values in [0, 2^32)."""
+    return hi32(code), lo32(code)
+
+
 @dataclass(frozen=True)
 class StreamingGraph:
     """Directed edge set with static capacity.

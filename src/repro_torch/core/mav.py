@@ -20,6 +20,11 @@ class MAV(NamedTuple):
     v_min: torch.Tensor   # int64 [n_walks]; vertex at p_min
 
 
+def affected_mask(mav: MAV, length: int):
+    """The walks the MAV marks affected (p_min < l)."""
+    return mav.p_min < length
+
+
 def touched_vertices(n_vertices: int, device, *arrays):
     touched = torch.zeros((n_vertices,), dtype=torch.bool, device=device)
     for arr in arrays:

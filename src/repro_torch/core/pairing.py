@@ -15,9 +15,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch._u64 import BIAS, M32, bias, hi32, join, lo32
+from repro_torch._u64 import BIAS, INT64_MAX, M32, bias, hi32, join, lo32
 
 _MAX_ROOT = M32
+_EXACT_SEED = 1 << 52   # isqrt_u64: the float64 seed is exact below it
 
 
 def _ule(a_raw, b_raw):
@@ -35,6 +36,12 @@ def isqrt_u64(z: torch.Tensor) -> torch.Tensor:
     # from the halves: the biased value itself loses small z to rounding
     zf = hi32(z).to(torch.float64) * 2.0 ** 32 + lo32(z).to(torch.float64)
     r = torch.sqrt(zf).floor().clamp(0, float(_MAX_ROOT)).to(torch.int64)
+    # below 2^52 the float64 seed is the root: zf is exact, and a correctly
+    # rounded sqrt stays more than half an ulp below the next integer root.
+    # The check costs one pass; the corrections cost ~20 (on the CPU only:
+    # on the card it would sync)
+    if not z.is_cuda and bool(((raw >= 0) & (raw < _EXACT_SEED)).all()):
+        return r
     for _ in range(2):   # r*r > z -> r - 1   (r <= 2^32-1: r*r cannot wrap)
         r = torch.where(_ule(r * r, raw) | (r == 0), r, r - 1)
     for _ in range(2):   # (r+1)^2 <= z -> r + 1
@@ -56,6 +63,18 @@ def szudzik_unpair(z: torch.Tensor):
     rem = (z ^ BIAS) - s * s      # exact: 0 <= rem <= 2s < 2^33
     lt = rem < s
     return torch.where(lt, rem, s), torch.where(lt, s, rem - s)
+
+
+def cantor_pair(x, y):
+    """Cantor pairing (paper §2), `s (s + 1) / 2 + y` with s = x + y, mod
+    2^64 as the reference's u64 arithmetic. Operands are u64 values held as
+    int64 bits (the plain values below 2^63); the result is a biased code.
+    Wharf pairs with Szudzik; Cantor is kept for the paper's Property 1."""
+    x = torch.as_tensor(x, dtype=torch.int64)
+    y = torch.as_tensor(y, dtype=torch.int64, device=x.device)
+    s = x + y
+    # the unsigned halving of the wrapped product: a logical shift
+    return bias((((s * (s + 1)) >> 1) & INT64_MAX) + y)
 
 
 def pack_wp(w, p, length: int):

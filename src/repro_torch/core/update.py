@@ -510,6 +510,18 @@ def stream_step_aux(state: EngineState, key, ins_src, ins_dst, del_src,
     return state, aux
 
 
+def stream_step(state: EngineState, key, ins_src, ins_dst, del_src, del_dst,
+                cfg: WalkConfig, capacity: int, mav_capacity: int,
+                max_pending: int, merge_policy: str,
+                merge_impl: str) -> EngineState:
+    """The shared update step, state alone: `stream_step_aux` without its
+    aux, as the reference's `stream_step`."""
+    state, _ = stream_step_aux(state, key, ins_src, ins_dst, del_src,
+                               del_dst, cfg, capacity, mav_capacity,
+                               max_pending, merge_policy, merge_impl)
+    return state
+
+
 def run_stream(state: EngineState, keys, ins_src, ins_dst, del_src, del_dst,
                *, cfg: WalkConfig, capacity: int, mav_capacity: int,
                max_pending: int, merge_policy: str = "on-demand",

@@ -21,11 +21,12 @@ MAX_WINDOW = 32     # the kernel's K bound: chunk j's scalars sit in lane j
 
 def _search_plain_slab(packed, widths, a_hi, a_lo, chunk_idx, f_targets):
     q, k = chunk_idx.shape
-    codes = decode_rows_plain(packed, widths, a_hi, a_lo,
-                              chunk_idx.reshape(-1).to(torch.int64))
-    f, v = szudzik_unpair(codes)
-    hit = f.reshape(q, k, CHUNK) == f_targets[:, None, None]
-    v = v.reshape(q, k, CHUNK)
+    # each distinct chunk of the slab is decoded and unpaired once
+    rows, inv = torch.unique(chunk_idx.reshape(-1).to(torch.int64),
+                             return_inverse=True)
+    f, v = szudzik_unpair(decode_rows_plain(packed, widths, a_hi, a_lo, rows))
+    hit = f[inv].reshape(q, k, CHUNK) == f_targets[:, None, None]
+    v = v[inv].reshape(q, k, CHUNK)
     chunk_hit = hit.any(dim=-1)                                  # [Q, K]
     found = chunk_hit.any(dim=-1)
     first = torch.argmax(chunk_hit.to(torch.int8), dim=-1)      # first hit k

@@ -70,3 +70,24 @@ def test_empty_graph_and_empty_batches():
     _same(jg, tg)
     e = np.zeros((0,), np.uint32)
     _same(jg.apply_batch(e, e, e, e), tg.apply_batch(e, e, e, e))
+
+
+def test_edge_endpoints_matches_reference():
+    """`edge_endpoints` of a graph's live codes and of u32 extremes."""
+    from repro.core.graph import edge_endpoints as j_endpoints
+    from repro_torch._u64 import from_u64_numpy
+    from repro_torch.core.graph import edge_endpoints
+    rng = np.random.default_rng(1)
+    src = rng.integers(0, 64, 80).astype(np.uint32)
+    dst = rng.integers(0, 64, 80).astype(np.uint32)
+    jg = JGraph.from_edges(jnp.asarray(src), jnp.asarray(dst), 64, 512)
+    codes = np.asarray(jg.codes)[: int(jg.num_edges)]
+    codes = np.concatenate([codes, np.asarray(
+        [0, 2**32 - 1, 2**32, (2**32 - 1) << 32, 2**64 - 1], dtype=np.uint64)])
+    ts, td = edge_endpoints(from_u64_numpy(codes))
+    js, jd = j_endpoints(jnp.asarray(codes))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js).astype(np.int64))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd).astype(np.int64))
+    tg = StreamingGraph.from_edges(src, dst, 64, 512, device="cpu")
+    ts, td = edge_endpoints(tg.codes[: int(tg.num_edges)])
+    assert bool(tg.has_edge(ts, td).all())

@@ -88,3 +88,36 @@ def test_triplet_encoding_and_search_range():
     np.testing.assert_array_equal(to_u64_numpy(lb), np.asarray(jlb))
     np.testing.assert_array_equal(to_u64_numpy(ub), np.asarray(jub))
     assert bool((lb <= code).all()) and bool((code <= ub).all())
+
+
+def test_cantor_pair_matches_reference():
+    """`cantor_pair` on u64 operands, the wrapping ones included (s = x + y
+    and s (s + 1) past 2^64), bit for bit."""
+    import torch
+    rng = np.random.default_rng(5)
+    x = np.concatenate([rng.integers(0, 2**32, 200, dtype=np.uint64),
+                        rng.integers(0, 2**64 - 1, 200, dtype=np.uint64, endpoint=True),
+                        np.asarray(U64_EDGES, dtype=np.uint64)])
+    y = np.concatenate([rng.integers(0, 2**32, 200, dtype=np.uint64),
+                        rng.integers(0, 2**64 - 1, 200, dtype=np.uint64, endpoint=True),
+                        np.asarray(U64_EDGES[::-1], dtype=np.uint64)])
+    got = tp.cantor_pair(torch.from_numpy(x.view(np.int64)),
+                         torch.from_numpy(y.view(np.int64)))
+    np.testing.assert_array_equal(
+        to_u64_numpy(got), np.asarray(jp.cantor_pair(jnp.asarray(x), jnp.asarray(y))))
+
+
+def test_isqrt_around_the_exact_seed_bound():
+    """`isqrt_u64` takes the float64 seed as the root below 2^52 on the CPU
+    and corrects it above: squares and their neighbours on both sides of
+    the bound, against the reference."""
+    roots = [2**26 - 2, 2**26 - 1, 2**26, 2**26 + 1, 2**20 + 7, 3]
+    z = sorted({r * r + d for r in roots for d in (-1, 0, 1, 2 * r)}
+               | {2**52 - 2, 2**52 - 1, 2**52, 2**52 + 1})
+    z = np.asarray(z, dtype=np.uint64)
+    np.testing.assert_array_equal(tp.isqrt_u64(_t(z)).numpy().astype(np.uint64),
+                                  np.asarray(jp.isqrt_u64(jnp.asarray(z))))
+    x, y = tp.szudzik_unpair(_t(z))
+    jx, jy = jp.szudzik_unpair(jnp.asarray(z))
+    np.testing.assert_array_equal(x.numpy().astype(np.uint64), np.asarray(jx))
+    np.testing.assert_array_equal(y.numpy().astype(np.uint64), np.asarray(jy))

@@ -5,6 +5,7 @@ policies x both merge impls, from the same state (carried across with
 import jax
 import numpy as np
 import pytest
+import torch
 
 from _torch_parity import (assert_state_dicts_equal, jax_state_to_numpy,
                            make_jax_engine, make_stream, port_engine_like)
@@ -60,3 +61,41 @@ def test_convert_roundtrip_is_exact():
     assert_state_dicts_equal(d, back)
     for k in convert.SCALARS:
         assert back[k] == d[k], k
+
+
+def test_stream_step_and_affected_mask_match_reference():
+    """`stream_step` on one mixed batch: the state of the reference's
+    `stream_step`, and the port's own `stream_step_aux` state; the MAV's
+    `affected_mask` on that batch, against the reference's."""
+    import jax.numpy as jnp
+
+    from repro.core import mav as jmav
+    from repro.core.update import stream_step as j_stream_step
+    from repro_torch.core import mav as tmav
+    from repro_torch.core.update import stream_step, stream_step_aux
+
+    eng = make_jax_engine(max_pending=2)
+    ins_s, ins_d, del_s, del_d = (a[0] for a in make_stream(n_batches=1))
+    key = jax.random.PRNGKey(21)
+    jm = jmav.mav_dense(eng.store, *(jnp.asarray(a) for a in (ins_s, ins_d, del_s, del_d)))
+    length = eng.store.length
+    args = dict(cfg=eng.cfg, capacity=eng.rewalk_capacity,
+                mav_capacity=eng.store.size, max_pending=eng.max_pending,
+                merge_policy="on-demand", merge_impl="interleave")
+    want = j_stream_step(eng.state, key, *(jnp.asarray(a) for a in
+                                           (ins_s, ins_d, del_s, del_d)), **args)
+
+    teng = port_engine_like(eng)
+    tm = tmav.mav_dense(teng.store, ins_s, ins_d, del_s, del_d)
+    np.testing.assert_array_equal(tmav.affected_mask(tm, length).numpy(),
+                                  np.asarray(jmav.affected_mask(jm, length)))
+    assert int(tmav.affected_mask(tm, length).sum()) > 0
+    targs = dict(args, cfg=teng.cfg)
+    tkey = torch.from_numpy(np.asarray(key).astype(np.int64))
+    tins = [torch.from_numpy(a.astype(np.int64)) for a in (ins_s, ins_d, del_s, del_d)]
+    got = stream_step(teng.state, tkey, *tins, **targs)
+    aux_state, _ = stream_step_aux(port_engine_like(eng).state, tkey, *tins,
+                                   **targs)
+    assert_state_dicts_equal(jax_state_to_numpy(want), convert.state_to_numpy(got))
+    assert_state_dicts_equal(convert.state_to_numpy(aux_state),
+                             convert.state_to_numpy(got))
