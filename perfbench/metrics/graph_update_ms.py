@@ -1,0 +1,9 @@
+"""Device ms a traced batch of the operations inside the `wharf.graph_update`
+scope, from the profiler's device records."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or not run.traced_batches or not t.has_layer("wharf.graph_update"):
+        return None
+    return t.layer_s("wharf.graph_update") / run.traced_batches * 1e3
